@@ -2,7 +2,8 @@
 
 Score and traceback a batch of read/ref pairs, exactly like versalignLib's
 `score_alignments` / `compute_alignments` (same defaults 2/-1/-3/-3, same
-semantics bit-for-bit). Backends: "auto" picks pallas on TPU, xla on CPU.
+semantics bit-for-bit). Backends: "auto" picks the GPU kernel (pallas) on
+a GPU, xla elsewhere.
 """
 
 from versalignlib_tpu import Algorithm, AlignmentEngine, AlignmentParameters

@@ -1,7 +1,7 @@
 """Banded alignment for LONG pairs (10-100kbp+).
 
 Dense DP is O(m*n) memory; for long, mostly-colinear pairs the banded
-model fills only a moving diagonal band, tiled through VMEM. Semantics are
+model fills only a moving diagonal band, one row at a time. Semantics are
 defined by the banded oracle (ops/banded.py); scores equal dense whenever
 the true alignment stays inside the band.
 """
@@ -20,7 +20,7 @@ for k in rng.integers(0, len(read), size=20):
     read[int(k)] = str(rng.choice(bases))
 read = "".join(read)
 
-model = models.banded_smith_waterman(band=256, tile=64)
+model = models.banded_smith_waterman(band=256)
 aln = model.align([read], [ref])[0]
 dels = [run for run in aln.cigar.replace("M", " M ").split() if "D" in run]
 print(f"score={aln.score} cigar-ops={len(aln.cigar)} chars, "

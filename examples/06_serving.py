@@ -2,7 +2,7 @@
 
 Starts an AlignServer in-process, sends concurrent requests, and shows the
 batching stats. In production run `python -m versalignlib_tpu.serve` and
-put a load balancer in front of one server per TPU host.
+put a load balancer in front of one server per GPU.
 """
 
 import http.client

@@ -2,8 +2,8 @@
 
 A PSSM (the PSI-BLAST / MEME model) scores each profile position with its
 own per-symbol row — additive over the reference's single match/mismatch
-rule. On TPU the profile rides the one-vs-many kernel's SMEM side as
-bit-packed score words; here everything runs on CPU in interpreter mode.
+rule. The scan runs as a device DP over the pool with the profile as the
+row side.
 """
 
 import numpy as np

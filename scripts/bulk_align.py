@@ -2,7 +2,7 @@
 """Bulk alignment pipeline: millions of pairs, restartable, data-parallel.
 
 BASELINE config 5 ("10M read-vs-reference SW alignments sharded
-data-parallel"): streams pair chunks through the Pallas score kernel (or the
+data-parallel"): streams pair chunks through the device score path (or the
 full align+decode path), sharded over the device mesh when more than one
 device is present, journaling completed chunks so a crash resumes where it
 left off (utils/checkpoint.py).
@@ -52,18 +52,21 @@ def main() -> int:
     import jax
 
     from versalignlib_tpu.alphabet import pad_and_encode
-    from versalignlib_tpu.ops.pallas_score import score_batch_device, _is_tpu
-    from versalignlib_tpu.ops.xla import score_batch as xla_score
+    from versalignlib_tpu.dispatch import device_score_fn, resolve_score_impl
+    from versalignlib_tpu.ops.xla import align_pairs
     from versalignlib_tpu.params import AlignmentParameters
     from versalignlib_tpu.parallel import make_mesh
     from versalignlib_tpu.parallel.distributed import distributed_score_batch
     from versalignlib_tpu.types import Algorithm
     from versalignlib_tpu.utils.checkpoint import ScoreCheckpoint
+    from versalignlib_tpu.utils.compile_cache import enable_compile_cache
     from versalignlib_tpu.utils.profiling import GcupsMeter
+
+    enable_compile_cache()
 
     p = AlignmentParameters()
     algorithm = Algorithm.SMITH_WATERMAN if args.algorithm == "sw" else Algorithm.NEEDLEMAN_WUNSCH
-    on_tpu = _is_tpu()
+    score = device_score_fn(resolve_score_impl())
     n_dev = len(jax.devices())
     mesh = make_mesh() if n_dev > 1 else None
 
@@ -79,10 +82,6 @@ def main() -> int:
         refs_all = pad_and_encode(parse_sequences(args.refs))
         total = reads_all.shape[0]
         get_chunk = lambda c, lo, hi: (reads_all[lo:hi], refs_all[lo:hi])
-
-    if args.mode == "align":
-        # Alignments stream to per-chunk files; scores land in the checkpoint.
-        from versalignlib_tpu.ops.pallas_align import pallas_align_batch
 
     import jax.numpy as jnp
 
@@ -103,10 +102,7 @@ def main() -> int:
 
         from versalignlib_tpu.io.staging import prefetch_to_device
 
-        kernel = (
-            (lambda r, f: score_batch_device(r, f, p, algorithm, False))
-            if on_tpu else (lambda r, f: xla_score(r, f, p, algorithm))
-        )
+        kernel = lambda r, f: score(r, f, p, algorithm)  # noqa: E731
         staged = prefetch_to_device(
             ((c, lo, *get_chunk(c, lo, hi)) for c, lo, hi in pending),
             depth=2,
@@ -142,15 +138,9 @@ def main() -> int:
             if args.mode == "score":
                 if mesh is not None:
                     scores = distributed_score_batch(
-                        reads, refs, p, algorithm, mesh=mesh,
-                        impl="pallas" if on_tpu else "xla",
-                    )
-                elif on_tpu:
-                    scores = np.asarray(score_batch_device(
-                        jnp.asarray(reads), jnp.asarray(refs), p, algorithm,
-                        False), dtype=np.int32)
+                        reads, refs, p, algorithm, mesh=mesh)
                 else:
-                    scores = np.asarray(xla_score(
+                    scores = np.asarray(score(
                         jnp.asarray(reads), jnp.asarray(refs), p, algorithm
                     ), dtype=np.int32)
             else:
@@ -159,8 +149,9 @@ def main() -> int:
                 from versalignlib_tpu import native
 
                 raw = native.available()
-                alns = pallas_align_batch(reads, refs, p, algorithm,
-                                          interpret=not on_tpu, raw=raw)
+                # Alignments stream to per-chunk files; scores land in
+                # the checkpoint.
+                alns = align_pairs(reads, refs, p, algorithm, raw=raw)
                 scores = (np.asarray(alns.scores, dtype=np.int32) if raw
                           else np.array([a.score for a in alns], dtype=np.int32))
                 out = pathlib.Path(args.ckpt) / f"alignments_{c:06d}.txt"

@@ -47,13 +47,12 @@ def synthetic_chunk(seed: int, chunk_index: int, n: int, panel_enc):
 def _write_sam_part(path, reads, hits, panel_enc, panel_names, params,
                     algorithm, lo) -> None:
     """One chunk's SAM records (no header): raw traceback of each read's
-    winning pair through the packed Pallas fill, formatted by the native
+    winning pair through the device pointer fill, formatted by the native
     C++ layer (Python sam_record fallback when unavailable)."""
     from versalignlib_tpu import native
     from versalignlib_tpu.alphabet import (decode, pad_and_encode,
                                            reverse_complement_codes)
-    from versalignlib_tpu.ops.pallas_align import pallas_align_batch
-    from versalignlib_tpu.ops.pallas_score import _is_tpu
+    from versalignlib_tpu.ops.xla import align_pairs
 
     reads_enc = (reads if isinstance(reads, np.ndarray)
                  else pad_and_encode(reads))
@@ -62,8 +61,7 @@ def _write_sam_part(path, reads, hits, panel_enc, panel_names, params,
                         reads_enc)
     refs_sel = panel_enc[hits.index]
     raw_ok = native.available()
-    batch = pallas_align_batch(oriented, refs_sel, params, algorithm,
-                               interpret=not _is_tpu(), raw=raw_ok)
+    batch = align_pairs(oriented, refs_sel, params, algorithm, raw=raw_ok)
     b = reads_enc.shape[0]
     seqs = [decode(r) for r in oriented]
     qnames = [f"read{lo + i}" for i in range(b)]
@@ -111,6 +109,9 @@ def main() -> int:
     from versalignlib_tpu.search import map_reads
     from versalignlib_tpu.types import Algorithm
     from versalignlib_tpu.utils.checkpoint import TableCheckpoint
+    from versalignlib_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     p = AlignmentParameters()
     algorithm = (Algorithm.SMITH_WATERMAN if args.algorithm == "sw"

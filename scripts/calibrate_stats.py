@@ -8,7 +8,7 @@ blast_stat.c values, with relative errors, as ``STATS_r{NN}.json`` at the
 repo root. The unit tests gate looser (runtime-bounded) versions of the
 same fits; this script is the judge-facing precision evidence.
 
-Host-only (numpy DP extractor) — safe to run while the TPU is busy.
+Host-only (numpy DP extractor) — needs no accelerator.
 
 Usage: python scripts/calibrate_stats.py [--samples 320]
 """

@@ -1,20 +1,24 @@
 #!/usr/bin/env python
-"""Multi-host (pod) alignment driver.
+"""Multi-host alignment driver.
 
 Launch ONE copy of this script per host/process; together they score and/or
 align a shared pair batch with zero cross-host pointer traffic (see
 versalignlib_tpu/parallel/multihost.py). The reference has no multi-node
-anything (SURVEY §2.6) — this is the pod-scale analogue of its example
+anything (SURVEY §2.6) — this is the multi-host analogue of its example
 driver (/root/reference/src/impl/main.cpp:74-215).
 
-On a real TPU pod slice the JAX runtime auto-detects the topology:
+GPU hosts: run ONE process per host; it owns all of that host's local
+cards (one JAX process per card set — a second process on a card fails for
+want of memory). Give every process the same rendezvous, the process
+count and its own id (process 0's host serves the rendezvous):
 
-    # on every host of the slice
+    # on host i of N
     python scripts/multihost_align.py --reads reads.fa --refs refs.fa \
-        --outdir out/
+        --outdir out/ --coordinator host0:9911 --num-processes N \
+        --process-id i
 
-For CPU-based validation (CI, laptops) pass an explicit rendezvous and a
-virtual device count (Gloo stands in for ICI):
+For CPU-based validation (CI, laptops) add a virtual device count (Gloo
+stands in for the interconnect):
 
     python scripts/multihost_align.py ... \
         --coordinator localhost:9911 --num-processes 2 --process-id $i \
@@ -52,12 +56,12 @@ def main(argv=None) -> int:
     ap.add_argument("--gap-open", type=int, default=0,
                     help="affine gap-open penalty (0 = linear)")
     ap.add_argument("--coordinator", default=None,
-                    help="host:port rendezvous (omit on TPU pods: auto)")
+                    help="host:port rendezvous served by process 0")
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument("--cpu-devices", type=int, default=0,
                     help="force CPU platform with N local virtual devices "
-                         "(validation without TPUs)")
+                         "(validation without accelerators)")
     args = ap.parse_args(argv)
 
     if args.cpu_devices:
@@ -72,6 +76,9 @@ def main(argv=None) -> int:
         jax.config.update("jax_platforms", "cpu")
 
     from versalignlib_tpu.parallel import multihost
+    from versalignlib_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     multihost.initialize(args.coordinator, args.num_processes, args.process_id)
     pid, nproc = jax.process_index(), jax.process_count()

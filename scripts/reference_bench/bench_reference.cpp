@@ -3,8 +3,7 @@
 // same way the reference's own harness does (time_kernel,
 // /root/reference/src/impl/main.cpp:240-295: re-inject num_threads, fresh
 // kernel, repeated compute/score calls, mean wall time) — but reporting
-// GCUPS so the numbers compare directly against the TPU kernels'
-// (BENCHMARKS.md, TPU_CHECK_r*.json).
+// GCUPS so the numbers compare directly against the device paths'.
 //
 // Like tests/golden/gen_golden.cpp, this LINKS the reference sources
 // through their public plugin interface; no reference code is copied or

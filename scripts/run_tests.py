@@ -2,9 +2,9 @@
 """Sharded test runner: the full suite, guaranteed to finish.
 
 The monolithic ``pytest tests/`` run accumulates hundreds of XLA-CPU compiles
-(Pallas interpret mode on an 8-device virtual mesh) in ONE process and has
-twice died with SIGSEGV/SIGABRT inside ``backend_compile`` at ~98% with no
-summary line — a crash that can mask real failures.  This runner executes each
+(an 8-device virtual CPU mesh, Pallas kernels in interpret mode) in ONE
+process and has twice died with SIGSEGV/SIGABRT inside ``backend_compile``
+at ~98% with no summary line — a crash that can mask real failures.  This runner executes each
 test file in its OWN pytest subprocess (bounding per-process compile-state),
 aggregates the per-file pass/fail/skip counts, and writes ``TESTS.json`` plus
 a per-round copy ``TESTS_r{NN}.json`` at the repo root so "the suite passed"

@@ -10,32 +10,30 @@ from versalignlib_tpu.params import AlignmentParameters
 from versalignlib_tpu.types import Algorithm
 
 
-def _oracle_batch(reads, refs, p, band, tile, algorithm):
+def _oracle_batch(reads, refs, p, band, algorithm):
     m = reads.shape[1]
     n = refs.shape[1]
-    m_pad = -(-m // tile) * tile
-    offs = band_offsets(m_pad, m, n, band)
-    reads_pad = np.pad(reads, ((0, 0), (0, m_pad - m)))
+    offs = band_offsets(m, m, n, band)
     return np.array(
         [banded_score_oracle(r, f, p, band, algorithm, offs)
-         for r, f in zip(reads_pad, refs)],
+         for r, f in zip(reads, refs)],
         dtype=np.int32,
     )
 
 
 @pytest.mark.parametrize("algorithm", [Algorithm.SMITH_WATERMAN, Algorithm.NEEDLEMAN_WUNSCH])
-@pytest.mark.parametrize("shape,band,tile", [
-    ((6, 40, 56), 16, 8),
-    ((5, 64, 32), 24, 16),   # n < m: band clamps to left region
-    ((4, 30, 90), 16, 10),   # n >> m: steep band steps (d > 1)
+@pytest.mark.parametrize("shape,band", [
+    ((6, 40, 56), 16),
+    ((5, 64, 32), 24),   # n < m: band clamps to left region
+    ((4, 30, 90), 16),   # n >> m: steep band steps (d > 1)
 ])
-def test_banded_matches_oracle(rng, default_params, algorithm, shape, band, tile):
+def test_banded_matches_oracle(rng, default_params, algorithm, shape, band):
     b, m, n = shape
     reads = random_codes(rng, b, m, padded=True, n_prob=0.05)
     refs = random_codes(rng, b, n, padded=True, n_prob=0.05)
     got = banded_score_batch(reads, refs, default_params, algorithm,
-                             band=band, tile=tile, interpret=True)
-    want = _oracle_batch(reads, refs, default_params, min(band, n), tile, algorithm)
+                             band=band)
+    want = _oracle_batch(reads, refs, default_params, min(band, n), algorithm)
     np.testing.assert_array_equal(got, want)
 
 
@@ -44,7 +42,7 @@ def test_full_band_equals_dense(rng, default_params, algorithm):
     reads = random_codes(rng, 8, 24, padded=True)
     refs = random_codes(rng, 8, 24, padded=True)
     got = banded_score_batch(reads, refs, default_params, algorithm,
-                             band=24, tile=8, interpret=True)
+                             band=24)
     want = oracle.score_alignments(algorithm, reads, refs, default_params)
     np.testing.assert_array_equal(got, want)
 
@@ -59,11 +57,9 @@ def test_wide_band_finds_distant_hit(default_params):
     reads = pad_and_encode([read])
     refs = pad_and_encode([ref])
     narrow = banded_score_batch(reads, refs, default_params,
-                                Algorithm.SMITH_WATERMAN, band=8, tile=8,
-                                interpret=True)
+                                Algorithm.SMITH_WATERMAN, band=8)
     wide = banded_score_batch(reads, refs, default_params,
-                              Algorithm.SMITH_WATERMAN, band=60, tile=8,
-                              interpret=True)
+                              Algorithm.SMITH_WATERMAN, band=60)
     assert wide[0] == 20
     assert narrow[0] < wide[0]
 
@@ -71,12 +67,11 @@ def test_wide_band_finds_distant_hit(default_params):
 # Banded alignment (traceback) vs the banded align oracle
 # ---------------------------------------------------------------------------
 
-def _align_oracle_batch(reads, refs, p, band, tile, algorithm):
+def _align_oracle_batch(reads, refs, p, band, algorithm):
     from versalignlib_tpu.ops.banded import banded_align_oracle
 
     m, n = reads.shape[1], refs.shape[1]
-    m_pad = -(-m // tile) * tile
-    offs = band_offsets(m_pad, m, n, min(band, n))
+    offs = band_offsets(m, m, n, min(band, n))
     return [banded_align_oracle(r, f, p, min(band, n), algorithm, offs)
             for r, f in zip(reads, refs)]
 
@@ -88,24 +83,23 @@ AFFINE_PARAMS = AlignmentParameters(
 
 @pytest.mark.parametrize("algorithm", [Algorithm.SMITH_WATERMAN, Algorithm.NEEDLEMAN_WUNSCH])
 @pytest.mark.parametrize("affine", [False, True])
-@pytest.mark.parametrize("shape,band,tile", [
-    ((6, 40, 56), 16, 8),
-    ((5, 64, 32), 24, 16),   # n < m: band clamps left
-    ((4, 30, 90), 16, 10),   # steep band steps (d > 1)
-    ((5, 30, 36), 12, 6),
-    ((4, 10, 12), 10, 4),    # m % tile != 0: padded rows must stay unvisited
+@pytest.mark.parametrize("shape,band", [
+    ((6, 40, 56), 16),
+    ((5, 64, 32), 24),   # n < m: band clamps left
+    ((4, 30, 90), 16),   # steep band steps (d > 1)
+    ((5, 30, 36), 12),
+    ((4, 10, 12), 1),    # one-cell band: in-band cells can be unreachable
 ])
 def test_banded_align_matches_oracle(rng, default_params, algorithm, affine,
-                                     shape, band, tile):
+                                     shape, band):
     from versalignlib_tpu.ops.banded import banded_align_batch
 
     p = AFFINE_PARAMS if affine else default_params
     b, m, n = shape
     reads = random_codes(rng, b, m, padded=True, n_prob=0.05)
     refs = random_codes(rng, b, n, padded=True, n_prob=0.05)
-    got = banded_align_batch(reads, refs, p, algorithm, band=band, tile=tile,
-                             interpret=True)
-    want = _align_oracle_batch(reads, refs, p, band, tile, algorithm)
+    got = banded_align_batch(reads, refs, p, algorithm, band=band)
+    want = _align_oracle_batch(reads, refs, p, band, algorithm)
     for g, w in zip(got, want):
         assert (g.read, g.ref, g.score, g.cigar) == (w.read, w.ref, w.score, w.cigar)
         assert (g.read_start, g.read_end, g.ref_start, g.ref_end) == \
@@ -121,19 +115,17 @@ def test_banded_align_matches_oracle(rng, default_params, algorithm, affine,
 def test_banded_align_sse_flavor_matches_oracle(rng, default_params,
                                                 algorithm, affine):
     """SSE tie flavor on the banded path (validity-gated DIAG > LEFT > UP,
-    flavored NW boundaries): kernel bit-equal to the flavored oracle."""
+    flavored NW boundaries): band scan bit-equal to the flavored oracle."""
     from versalignlib_tpu.ops.banded import banded_align_batch, banded_align_oracle
     from versalignlib_tpu.types import TieBreak
 
     p = AFFINE_PARAMS if affine else default_params
     tie = TieBreak.DIAG_LEFT_UP
-    b, m, n, band, tile = 6, 30, 36, 12, 6
+    b, m, n, band = 6, 30, 36, 12
     reads = random_codes(rng, b, m, padded=True, n_prob=0.1)
     refs = random_codes(rng, b, n, padded=True, n_prob=0.1)
-    got = banded_align_batch(reads, refs, p, algorithm, band=band, tile=tile,
-                             interpret=True, tie=tie)
-    m_pad = -(-m // tile) * tile
-    offs = band_offsets(m_pad, m, n, band)
+    got = banded_align_batch(reads, refs, p, algorithm, band=band, tie=tie)
+    offs = band_offsets(m, m, n, band)
     want = [banded_align_oracle(r, f, p, band, algorithm, offs, tie=tie)
             for r, f in zip(reads, refs)]
     for g, w in zip(got, want):
@@ -149,8 +141,7 @@ def test_banded_align_full_band_equals_dense(rng, default_params):
     refs = random_codes(rng, 6, 20, n_prob=0.1)
     for tie in (TieBreak.DIAG_UP_LEFT, TieBreak.DIAG_LEFT_UP):
         got = banded_align_batch(reads, refs, default_params,
-                                 Algorithm.SMITH_WATERMAN, band=20, tile=10,
-                                 interpret=True, tie=tie)
+                                 Algorithm.SMITH_WATERMAN, band=20, tie=tie)
         want = oracle.compute_alignments(Algorithm.SMITH_WATERMAN, reads, refs,
                                          default_params, tie)
         for g, w in zip(got, want):
@@ -165,8 +156,7 @@ def test_banded_affine_full_band_equals_dense_gotoh(rng):
     reads = random_codes(rng, 5, 18)
     refs = random_codes(rng, 5, 18)
     got = banded_align_batch(reads, refs, AFFINE_PARAMS,
-                             Algorithm.SMITH_WATERMAN, band=18, tile=6,
-                             interpret=True)
+                             Algorithm.SMITH_WATERMAN, band=18)
     want = [gotoh.sw_align_affine(r, f, AFFINE_PARAMS)
             for r, f in zip(reads, refs)]
     for g, w in zip(got, want):
@@ -174,8 +164,8 @@ def test_banded_affine_full_band_equals_dense_gotoh(rng):
 
 
 def test_banded_align_nw_padded_reads_stay_clean(default_params):
-    # The round-1 ADVICE repro: NW traceback must start on the last VALID
-    # read row, not the padded final row (m=10, tile=4, band=10).
+    # NW traceback must start on the last VALID read row, not the padded
+    # final row.
     from versalignlib_tpu.ops.banded import banded_align_batch
 
     reads = np.zeros((2, 10), dtype=np.uint8)
@@ -186,9 +176,8 @@ def test_banded_align_nw_padded_reads_stay_clean(default_params):
     reads[1, :] = rng2.integers(1, 5, 10)   # fully valid
     refs[1, :] = rng2.integers(1, 5, 12)
     alns = banded_align_batch(reads, refs, default_params,
-                              Algorithm.NEEDLEMAN_WUNSCH, band=10, tile=4,
-                              interpret=True)
-    want = _align_oracle_batch(reads, refs, default_params, 10, 4,
+                              Algorithm.NEEDLEMAN_WUNSCH, band=10)
+    want = _align_oracle_batch(reads, refs, default_params, 10,
                                Algorithm.NEEDLEMAN_WUNSCH)
     for a, w, m_valid in zip(alns, want, (5, 10)):
         assert "\0" not in a.read and "\0" not in a.ref
@@ -205,8 +194,7 @@ def test_banded_align_narrow_band_snp(default_params):
     mut = seq.copy()
     mut[:, 30] = (mut[:, 30] % 4) + 1
     alns = banded_align_batch(seq, mut, default_params,
-                              Algorithm.SMITH_WATERMAN, band=16, tile=10,
-                              interpret=True)
+                              Algorithm.SMITH_WATERMAN, band=16)
     for a in alns:
         assert a.cigar == "60M"
         assert a.score in (117, 120)  # one mismatch (or silent same-base "mutation")
@@ -220,15 +208,14 @@ def test_banded_affine_scores(rng):
                             score_gap_ref=-1, gap_open_read=-4, gap_open_ref=-4)
     reads = random_codes(rng, 5, 32, padded=True)
     refs = random_codes(rng, 5, 40, padded=True)
-    band, tile = 16, 8
+    band = 16
     for algorithm in (Algorithm.SMITH_WATERMAN, Algorithm.NEEDLEMAN_WUNSCH):
-        got = banded_score_batch(reads, refs, p, algorithm, band=band,
-                                 tile=tile, interpret=True)
-        want = _oracle_batch(reads, refs, p, band, tile, algorithm)
+        got = banded_score_batch(reads, refs, p, algorithm, band=band)
+        want = _oracle_batch(reads, refs, p, band, algorithm)
         np.testing.assert_array_equal(got, want)
     # full band degenerates to the dense Gotoh scores
     got = banded_score_batch(reads, refs, p, Algorithm.SMITH_WATERMAN,
-                             band=40, tile=8, interpret=True)
+                             band=40)
     want = gotoh.score_alignments_affine(Algorithm.SMITH_WATERMAN, reads, refs, p)
     np.testing.assert_array_equal(got, want)
 
@@ -240,11 +227,9 @@ def test_banded_align_steep_band(rng, default_params):
     reads = random_codes(rng, 4, 20)
     refs = random_codes(rng, 4, 70)
     alns = banded_align_batch(reads, refs, default_params,
-                              Algorithm.SMITH_WATERMAN, band=16, tile=5,
-                              interpret=True)
+                              Algorithm.SMITH_WATERMAN, band=16)
     scores = banded_score_batch(reads, refs, default_params,
-                                Algorithm.SMITH_WATERMAN, band=16, tile=5,
-                                interpret=True)
+                                Algorithm.SMITH_WATERMAN, band=16)
     assert [a.score for a in alns] == [int(s) for s in scores]
     for a, r, f in zip(alns, reads, refs):
         cost = 0
@@ -268,7 +253,7 @@ def test_banded_python_fallback_matches_native(rng, default_params):
     for p in (default_params, AFFINE_PARAMS):
         for algorithm in (Algorithm.SMITH_WATERMAN, Algorithm.NEEDLEMAN_WUNSCH):
             with_native = bd.banded_align_batch(
-                reads, refs, p, algorithm, band=12, tile=6, interpret=True)
+                reads, refs, p, algorithm, band=12)
             # Force the python fallback by monkeypatching the import point.
             import versalignlib_tpu.native as nat
             real = nat.decode_banded_native
@@ -277,7 +262,7 @@ def test_banded_python_fallback_matches_native(rng, default_params):
                     raise ImportError("forced fallback")
                 nat.decode_banded_native = _raise
                 pure = bd.banded_align_batch(
-                    reads, refs, p, algorithm, band=12, tile=6, interpret=True)
+                    reads, refs, p, algorithm, band=12)
             finally:
                 nat.decode_banded_native = real
             for g, w in zip(with_native, pure):
@@ -296,31 +281,27 @@ def test_banded_raw_batch_matches_objects(rng, default_params):
     reads = random_codes(rng, 6, 24, padded=True)
     refs = random_codes(rng, 6, 30, padded=True)
     objs = banded_align_batch(reads, refs, default_params,
-                              Algorithm.NEEDLEMAN_WUNSCH, band=12, tile=6,
-                              interpret=True)
+                              Algorithm.NEEDLEMAN_WUNSCH, band=12)
     batch = banded_align_batch(reads, refs, default_params,
-                               Algorithm.NEEDLEMAN_WUNSCH, band=12, tile=6,
-                               interpret=True, raw=True)
+                               Algorithm.NEEDLEMAN_WUNSCH, band=12, raw=True)
     for got, want in zip(batch, objs):
         assert (got.read, got.ref, got.score, got.cigar) == \
             (want.read, want.ref, want.score, want.cigar)
 
 
 def test_banded_align_multi_chunk_matches_single_shot(rng, default_params):
-    # Pair-chunked dispatch (the 64MB link-budget path) must be invisible:
-    # 3 blocks of 1024 pairs through chunk_blocks=1 == one single-shot call.
+    # Pair-chunked dispatch (the plane-budget path) must be invisible:
+    # three rounds with a ragged tail == one single-shot call.
     from versalignlib_tpu.ops.banded import banded_align_batch
 
-    b = 2 * 1024 + 37  # 3 blocks, ragged tail
+    b = 2 * 64 + 37  # 3 rounds of 64, ragged tail
     reads = random_codes(rng, b, 16, padded=True, n_prob=0.05)
     refs = random_codes(rng, b, 20, padded=True, n_prob=0.05)
     for algorithm in (Algorithm.SMITH_WATERMAN, Algorithm.NEEDLEMAN_WUNSCH):
         chunked = banded_align_batch(reads, refs, default_params, algorithm,
-                                     band=12, tile=8, interpret=True,
-                                     chunk_blocks=1)
+                                     band=12, chunk_pairs=64)
         single = banded_align_batch(reads, refs, default_params, algorithm,
-                                    band=12, tile=8, interpret=True,
-                                    chunk_blocks=8)
+                                    band=12)
         assert len(chunked) == len(single) == b
         for g, w in zip(chunked, single):
             assert (g.read, g.ref, g.score, g.cigar,
@@ -335,17 +316,16 @@ def test_banded_align_multi_chunk_raw_concat(rng, default_params):
 
     if not native.available():
         pytest.skip("native library unavailable")
-    b = 1024 + 11
+    b = 64 + 11
     reads = random_codes(rng, b, 16, padded=True)
     refs = random_codes(rng, b, 20, padded=True)
     chunked = banded_align_batch(reads, refs, default_params,
-                                 Algorithm.SMITH_WATERMAN, band=12, tile=8,
-                                 interpret=True, chunk_blocks=1, raw=True)
+                                 Algorithm.SMITH_WATERMAN, band=12,
+                                 chunk_pairs=64, raw=True)
     single = banded_align_batch(reads, refs, default_params,
-                                Algorithm.SMITH_WATERMAN, band=12, tile=8,
-                                interpret=True, chunk_blocks=2, raw=True)
+                                Algorithm.SMITH_WATERMAN, band=12, raw=True)
     assert len(chunked) == len(single) == b
-    for i in (0, 1023, 1024, b - 1):
+    for i in (0, 63, 64, b - 1):
         g, w = chunked[i], single[i]
         assert (g.read, g.ref, g.score, g.cigar) == \
             (w.read, w.ref, w.score, w.cigar)

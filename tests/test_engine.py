@@ -84,16 +84,39 @@ def test_auto_backend_skips_interpret_pallas_on_cpu():
     assert val.get_backend("pallas").name == "pallas"
 
 
+@pytest.mark.parametrize("platform,want", [("gpu", "pallas"), ("cpu", "xla")])
+def test_auto_backend_routes_by_capability(monkeypatch, platform, want):
+    """"auto" picks the GPU kernel backend only where it compiles (a CUDA
+    device), and no backend turns the interpreter on by itself."""
+    from versalignlib_tpu import dispatch
+    from versalignlib_tpu.ops.pallas_backend import PallasBackend
+    from versalignlib_tpu.utils import capabilities
+    from versalignlib_tpu.utils.capabilities import DeviceCapabilities
+
+    caps = DeviceCapabilities(platform, "fake " + platform, 1,
+                              80 << 30 if platform == "gpu" else None)
+    monkeypatch.setattr(capabilities, "probe", lambda: caps)
+    monkeypatch.setattr("versalignlib_tpu.ops.pallas_backend.probe",
+                        lambda: caps)
+    monkeypatch.setattr(dispatch._REGISTRY["pallas"], "instance", None)
+    assert dispatch.get_backend("auto").name == want
+    assert PallasBackend().interpret is False
+    assert PallasBackend().is_available() == (platform == "gpu")
+    assert PallasBackend(interpret=True).is_available()
+
+
 def test_cross_backend_consistency_sweep():
     """All backends agree on random shapes/params (scores + alignments)."""
     import numpy as np
 
     from tests.conftest import random_codes
     from versalignlib_tpu import AlignmentParameters, get_backend
+    from versalignlib_tpu.ops.pallas_backend import PallasBackend
     from versalignlib_tpu.types import TieBreak
 
     rng = np.random.default_rng(99)
-    backends = [get_backend("oracle"), get_backend("xla"), get_backend("pallas")]
+    backends = [get_backend("oracle"), get_backend("xla"),
+                PallasBackend(interpret=True)]
     for trial in range(4):
         p = AlignmentParameters(
             score_match=int(rng.integers(1, 4)),
@@ -121,17 +144,19 @@ def test_cross_backend_consistency_sweep():
 def test_cross_backend_consistency_sweep_extended():
     """Randomized agreement sweep over the ADDITIVE surfaces: affine gaps,
     custom matrices, and banded align — every trial draws params/shapes and
-    checks oracle == xla == pallas (and kernel == banded oracle)."""
+    checks oracle == xla == pallas (and band scan == banded oracle)."""
     import numpy as np
 
     from tests.conftest import random_codes
     from versalignlib_tpu import AlignmentParameters, get_backend
     from versalignlib_tpu.ops.banded import (band_offsets, banded_align_batch,
                                              banded_align_oracle)
+    from versalignlib_tpu.ops.pallas_backend import PallasBackend
     from versalignlib_tpu.types import TieBreak
 
     rng = np.random.default_rng(1234)
-    backends = [get_backend("oracle"), get_backend("xla"), get_backend("pallas")]
+    backends = [get_backend("oracle"), get_backend("xla"),
+                PallasBackend(interpret=True)]
     for trial in range(4):
         affine = bool(rng.integers(0, 2))
         use_matrix = bool(rng.integers(0, 2))
@@ -170,15 +195,12 @@ def test_cross_backend_consistency_sweep_extended():
                        (a1.read, a1.ref, a1.score, a1.cigar) == \
                        (a2.read, a2.ref, a2.score, a2.cigar), ctx
 
-            # banded align vs its oracle at a random band/tile
+            # banded align vs its oracle at a random band
             band = int(rng.integers(4, nlen + 1))
-            tile = int(rng.integers(2, max(3, mlen // 2)))
-            m_pad = -(-mlen // tile) * tile
-            offs = band_offsets(m_pad, mlen, nlen, min(band, nlen))
-            got = banded_align_batch(reads, refs, p, algorithm, band=band,
-                                     tile=tile, interpret=True)
+            offs = band_offsets(mlen, mlen, nlen, min(band, nlen))
+            got = banded_align_batch(reads, refs, p, algorithm, band=band)
             want = [banded_align_oracle(r, f, p, min(band, nlen), algorithm, offs)
                     for r, f in zip(reads, refs)]
             for g, w in zip(got, want):
                 assert (g.read, g.ref, g.score, g.cigar) == \
-                    (w.read, w.ref, w.score, w.cigar), (ctx, band, tile)
+                    (w.read, w.ref, w.score, w.cigar), (ctx, band)

@@ -117,20 +117,20 @@ def test_affine_batch_api(rng):
 
 
 def test_affine_device_backends_match_oracle(rng):
-    """XLA + Pallas(interpret) affine scores vs Gotoh oracle."""
+    """XLA + Triton kernel (interpret) affine scores vs Gotoh oracle."""
     import jax.numpy as jnp
 
-    from versalignlib_tpu.ops.pallas_score import PallasScorer
+    from versalignlib_tpu.ops.pallas_backend import PallasBackend
     from versalignlib_tpu.ops.xla import score_batch
 
     p = AFFINE_PARAMS[0]
     reads = random_codes(rng, 20, 13, padded=True, n_prob=0.05)
     refs = random_codes(rng, 20, 16, padded=True, n_prob=0.05)
-    scorer = PallasScorer(interpret=True)
+    pallas = PallasBackend(interpret=True)
     for alg in (Algorithm.SMITH_WATERMAN, Algorithm.NEEDLEMAN_WUNSCH):
         want = gotoh.score_alignments_affine(alg, reads, refs, p)
         got_x = np.asarray(score_batch(jnp.asarray(reads), jnp.asarray(refs), p, alg))
-        got_p = scorer(reads, refs, p, alg)
+        got_p = pallas.score_alignments(alg, reads, refs, p)
         np.testing.assert_array_equal(got_x, want)
         np.testing.assert_array_equal(got_p, want)
 
@@ -147,9 +147,8 @@ def test_affine_engine_routing(rng):
 
 def test_affine_sse_flavor_cross_backend(rng):
     """SSE-flavor affine pointers (validity-gated DIAG > LEFT(E) > UP(F), no
-    zero-force, N-invalid boundaries): XLA + Pallas(interpret) bit-equal to
-    the flavored Gotoh oracle."""
-    from versalignlib_tpu.ops.pallas_align import pallas_align_affine_batch
+    zero-force, N-invalid boundaries): the XLA fill's objects and raw
+    columns bit-equal to the flavored Gotoh oracle."""
     from versalignlib_tpu.ops.xla import XLABackend
     from versalignlib_tpu.types import TieBreak
 
@@ -161,13 +160,13 @@ def test_affine_sse_flavor_cross_backend(rng):
     for alg in (Algorithm.SMITH_WATERMAN, Algorithm.NEEDLEMAN_WUNSCH):
         want = gotoh.compute_alignments_affine(alg, reads, refs, p, tie)
         got_x = backend.compute_alignments(alg, reads, refs, p, tie)
-        got_p = pallas_align_affine_batch(reads, refs, p, alg, tie,
-                                          interpret=True)
+        got_p = list(backend.compute_alignments(alg, reads, refs, p, tie,
+                                                raw=True))
         for i, (w, gx, gp) in enumerate(zip(want, got_x, got_p)):
             assert (gx.read, gx.ref, gx.score, gx.cigar) == (
                 w.read, w.ref, w.score, w.cigar), ("xla", alg, i, gx, w)
             assert (gp.read, gp.ref, gp.score, gp.cigar) == (
-                w.read, w.ref, w.score, w.cigar), ("pallas", alg, i, gp, w)
+                w.read, w.ref, w.score, w.cigar), ("raw", alg, i, gp, w)
 
 
 def test_affine_sse_flavor_boundary_differs():
@@ -221,17 +220,16 @@ def test_oracle_batch_entry_points_route_affine(rng):
 
 
 def test_pallas_align_batch_routes_affine(rng):
-    """pallas_align_batch honors p.affine (the 2-bit linear kernel cannot
-    represent Gotoh state; it previously ran the LINEAR model silently —
-    inputs with interleaved invalid codes exposed it in round 4)."""
-    from versalignlib_tpu.ops.pallas_align import pallas_align_batch
+    """The pallas backend's align path honors p.affine (interleaved invalid
+    codes once exposed a path that ran the LINEAR model silently)."""
+    from versalignlib_tpu.ops.pallas_backend import PallasBackend
     from versalignlib_tpu.types import TieBreak
 
     p = AFFINE_PARAMS[1]
     reads = random_codes(rng, 24, 16, padded=True, n_prob=0.2)
     refs = random_codes(rng, 24, 17, padded=True, n_prob=0.2)
     for alg in (Algorithm.SMITH_WATERMAN, Algorithm.NEEDLEMAN_WUNSCH):
-        got = pallas_align_batch(reads, refs, p, alg, TieBreak.DIAG_UP_LEFT,
-                                 interpret=True)
+        got = PallasBackend(interpret=True).compute_alignments(
+            alg, reads, refs, p, TieBreak.DIAG_UP_LEFT)
         want = gotoh.compute_alignments_affine(alg, reads, refs, p)
         assert got == want, alg

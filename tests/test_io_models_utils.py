@@ -81,7 +81,7 @@ def test_affine_model():
 def test_banded_model(rng, default_params):
     reads = random_codes(rng, 4, 40)
     refs = random_codes(rng, 4, 40)
-    m = banded_needleman_wunsch(band=40, tile=8)
+    m = banded_needleman_wunsch(band=40)
     got = m.score(reads, refs)
     want = oracle.score_alignments(Algorithm.NEEDLEMAN_WUNSCH, reads, refs, default_params)
     np.testing.assert_array_equal(got, want)  # full band == dense
@@ -280,8 +280,9 @@ def test_capabilities_probe():
     from versalignlib_tpu.utils.capabilities import probe
 
     caps = probe()
-    assert caps.platform in ("cpu", "tpu", "gpu")
+    assert caps.platform in ("cpu", "gpu")
     assert caps.num_devices >= 1
+    assert caps.device_kind
 
 
 # --- debug -----------------------------------------------------------------
@@ -425,26 +426,67 @@ def test_affine_sse_tie_flavor_through_engine(rng):
                 w.read, w.ref, w.score, w.cigar), backend
 
 
-def test_capabilities_dense_gate():
+def test_capabilities_dense_gate(monkeypatch):
+    """Memory comes from the device's own memory_stats (None where it
+    reports none); the GPU kernels are claimed only for CUDA devices; a
+    failing probe raises instead of reporting a made-up device."""
+    import jax
+
+    from versalignlib_tpu.utils import capabilities
     from versalignlib_tpu.utils.capabilities import DeviceCapabilities
 
-    v5e = DeviceCapabilities("tpu", "TPU v5 lite", 1, True, 128 * 2**20)
-    assert v5e.dense_fits(512, 512)
-    assert v5e.dense_fits(1024, 1024)          # measured working (BENCHMARKS.md)
-    assert not v5e.dense_fits(16384, 16384)    # long pairs -> banded path
-    # The gate mirrors the kernels' OWN plans: the align plan streams read
-    # rows (m-independent), the score plan holds the whole read block.
-    assert v5e.dense_fits(16000, 512, mode="align")
-    assert not v5e.dense_fits(16000, 512, mode="score")
-    from versalignlib_tpu.ops.pallas_align import align_vmem_plan
-    from versalignlib_tpu.ops.pallas_score import score_vmem_plan
+    class FakeDevice:
+        platform, device_kind = "gpu", "NVIDIA H100 80GB HBM3"
 
-    assert v5e.dense_fits(512, 512, mode="score") == (
-        score_vmem_plan(512, 512) <= v5e.vmem_bytes)
-    assert v5e.dense_fits(512, 4000, affine=True, mode="align") == (
-        align_vmem_plan(4000, affine=True) <= v5e.vmem_bytes)
-    cpu = DeviceCapabilities("cpu", "cpu", 8, False, 0)
-    assert cpu.dense_fits(1 << 20, 1 << 20)    # interpret mode unconstrained
+        def memory_stats(self):
+            return {"bytes_limit": 60 << 30, "bytes_in_use": 0}
+
+    capabilities.probe.cache_clear()
+    monkeypatch.setattr(jax, "devices", lambda: [FakeDevice()] * 4)
+    monkeypatch.setattr(jax, "local_devices", lambda: [FakeDevice()] * 4)
+    caps = capabilities.probe()
+    assert caps == DeviceCapabilities("gpu", "NVIDIA H100 80GB HBM3", 4,
+                                      60 << 30)
+    assert caps.gpu_kernels
+    capabilities.probe.cache_clear()
+
+    def broken():
+        raise RuntimeError("no backend")
+
+    monkeypatch.setattr(jax, "local_devices", broken)
+    with pytest.raises(RuntimeError):
+        capabilities.probe()
+    capabilities.probe.cache_clear()
+    monkeypatch.undo()
+    cpu = capabilities.probe()
+    assert not cpu.gpu_kernels and cpu.memory_bytes is None
+
+
+@pytest.mark.parametrize("env_set", [True, False])
+def test_compile_cache_helper(monkeypatch, tmp_path, env_set):
+    """JAX_COMPILATION_CACHE_DIR wins untouched; otherwise the cache sits
+    at the fixed <checkout>/.jax_cache."""
+    import pathlib
+
+    import jax
+
+    from versalignlib_tpu.utils import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        if env_set:
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+            assert compile_cache.enable_compile_cache() == str(tmp_path)
+            assert jax.config.jax_compilation_cache_dir == before
+        else:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            got = compile_cache.enable_compile_cache()
+            root = pathlib.Path(__file__).resolve().parent.parent
+            assert got == str(root / ".jax_cache")
+            assert jax.config.jax_compilation_cache_dir == got
+            assert compile_cache.enable_compile_cache() == got  # stable
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
 
 
 def test_iter_fasta_streaming_matches_parse(tmp_path):
@@ -665,8 +707,7 @@ def test_write_sam_batch_matches_python_writer(rng, default_params):
 
     from versalignlib_tpu import native
     from versalignlib_tpu.io.sam import write_sam, write_sam_batch
-    from versalignlib_tpu.ops.pallas_align import (pallas_align_affine_batch,
-                                                   pallas_align_batch)
+    from versalignlib_tpu.ops.xla import align_pairs
     from versalignlib_tpu.params import AlignmentParameters
 
     if not native.available():
@@ -675,14 +716,12 @@ def test_write_sam_batch_matches_python_writer(rng, default_params):
                                 score_gap_read=-1, score_gap_ref=-1,
                                 gap_open_read=-4, gap_open_ref=-4)
     for algorithm in (Algorithm.SMITH_WATERMAN, Algorithm.NEEDLEMAN_WUNSCH):
-        for params, fill in ((default_params, pallas_align_batch),
-                             (p_aff, pallas_align_affine_batch)):
+        for params in (default_params, p_aff):
             b = 24
             reads = rng.integers(0, 6, size=(b, 30)).astype(np.uint8)
             refs = rng.integers(0, 6, size=(b, 40)).astype(np.uint8)
             reads[0, :] = 0     # all-padding pair -> unmapped record
-            batch = fill(reads, refs, params, algorithm, interpret=True,
-                         raw=True)
+            batch = align_pairs(reads, refs, params, algorithm, raw=True)
             from versalignlib_tpu.alphabet import decode
 
             seqs = [decode(r) for r in reads]

@@ -8,10 +8,8 @@ from tests.conftest import random_codes
 from versalignlib_tpu.alphabet import (PROTEIN_ALPHABET, blosum62,
                                        encode_custom, substitution_scores)
 from versalignlib_tpu.ops import gotoh, oracle
-from versalignlib_tpu.ops.pallas_align import (pallas_align_affine_batch,
-                                               pallas_align_batch)
-from versalignlib_tpu.ops.pallas_score import PallasScorer
-from versalignlib_tpu.ops.xla import XLABackend
+from versalignlib_tpu.ops.pallas_backend import PallasBackend
+from versalignlib_tpu.ops.xla import XLABackend, align_pairs
 from versalignlib_tpu.params import AlignmentParameters
 from versalignlib_tpu.types import Algorithm, TieBreak
 
@@ -58,16 +56,16 @@ def test_matrix_backends_match_oracle(rng, mat_params, algorithm):
     xla = XLABackend()
     np.testing.assert_array_equal(
         xla.score_alignments(algorithm, reads, refs, mat_params), want_s)
-    scorer = PallasScorer(interpret=True)
+    pallas = PallasBackend(interpret=True)
     np.testing.assert_array_equal(
-        scorer(reads, refs, mat_params, algorithm), want_s)
+        pallas.score_alignments(algorithm, reads, refs, mat_params), want_s)
 
     want_a = oracle.compute_alignments(algorithm, reads, refs, mat_params,
                                        TieBreak.DIAG_UP_LEFT)
     got_x = xla.compute_alignments(algorithm, reads, refs, mat_params,
                                    TieBreak.DIAG_UP_LEFT)
-    got_p = pallas_align_batch(reads, refs, mat_params, algorithm,
-                               TieBreak.DIAG_UP_LEFT, interpret=True)
+    got_p = pallas.compute_alignments(algorithm, reads, refs, mat_params,
+                                      TieBreak.DIAG_UP_LEFT)
     for g, w in zip(got_x, want_a):
         assert (g.read, g.ref, g.score, g.cigar) == (w.read, w.ref, w.score, w.cigar)
     for g, w in zip(got_p, want_a):
@@ -82,12 +80,15 @@ def test_matrix_affine_matches_gotoh(rng):
     refs = random_codes(rng, 8, 20, padded=True)
     for algorithm in (Algorithm.SMITH_WATERMAN, Algorithm.NEEDLEMAN_WUNSCH):
         want = gotoh.compute_alignments_affine(algorithm, reads, refs, p)
-        got = pallas_align_affine_batch(reads, refs, p, algorithm, interpret=True)
+        got = align_pairs(reads, refs, p, algorithm)
         for g, w in zip(got, want):
             assert (g.read, g.ref, g.score, g.cigar) == (w.read, w.ref, w.score, w.cigar)
+        want_s = gotoh.score_alignments_affine(algorithm, reads, refs, p)
         np.testing.assert_array_equal(
-            XLABackend().score_alignments(algorithm, reads, refs, p),
-            gotoh.score_alignments_affine(algorithm, reads, refs, p))
+            XLABackend().score_alignments(algorithm, reads, refs, p), want_s)
+        np.testing.assert_array_equal(
+            PallasBackend(interpret=True).score_alignments(
+                algorithm, reads, refs, p), want_s)
 
 
 def test_matrix_banded(rng, mat_params):
@@ -98,18 +99,17 @@ def test_matrix_banded(rng, mat_params):
 
     reads = random_codes(rng, 5, 30, padded=True)
     refs = random_codes(rng, 5, 36, padded=True)
-    band, tile = 12, 6
-    m_pad = -(-30 // tile) * tile
-    offs = band_offsets(m_pad, 30, 36, band)
+    band = 12
+    offs = band_offsets(30, 30, 36, band)
     for algorithm in (Algorithm.SMITH_WATERMAN, Algorithm.NEEDLEMAN_WUNSCH):
         got = banded_score_batch(reads, refs, mat_params, algorithm,
-                                 band=band, tile=tile, interpret=True)
+                                 band=band)
         want = np.array([
             banded_score_oracle(r, f, mat_params, band, algorithm, offs)
-            for r, f in zip(np.pad(reads, ((0, 0), (0, m_pad - 30))), refs)])
+            for r, f in zip(reads, refs)])
         np.testing.assert_array_equal(got, want)
         got_a = banded_align_batch(reads, refs, mat_params, algorithm,
-                                   band=band, tile=tile, interpret=True)
+                                   band=band)
         want_a = [banded_align_oracle(r, f, mat_params, band, algorithm, offs)
                   for r, f in zip(reads, refs)]
         for g, w in zip(got_a, want_a):
@@ -136,8 +136,9 @@ def test_matrix_sse_flavor_validity_gate():
 
 
 def test_matrix_sse_flavor_cross_backend(rng):
-    """Matrix mode under the SSE flavor: XLA + Pallas(interpret) tracebacks
-    bit-equal to the flavored oracle, incl. an interior zero row/col code."""
+    """Matrix mode under the SSE flavor: the XLA fill's tracebacks (objects
+    and raw columns) bit-equal to the flavored oracle, incl. an interior
+    zero row/col code."""
     m = np.array(_random_matrix(rng, 7), dtype=np.int64)
     m[4, :] = 0
     m[:, 4] = 0  # N-analogue: code 4 is score-invalid
@@ -151,13 +152,12 @@ def test_matrix_sse_flavor_cross_backend(rng):
     for algorithm in (Algorithm.SMITH_WATERMAN, Algorithm.NEEDLEMAN_WUNSCH):
         want = oracle.compute_alignments(algorithm, reads, refs, p, tie)
         got_x = be.compute_alignments(algorithm, reads, refs, p, tie)
-        got_p = pallas_align_batch(reads, refs, p, algorithm, tie,
-                                   interpret=True)
+        got_p = list(align_pairs(reads, refs, p, algorithm, tie, raw=True))
         for i, (w, gx, gp) in enumerate(zip(want, got_x, got_p)):
             assert (gx.read, gx.ref, gx.score, gx.cigar) == (
                 w.read, w.ref, w.score, w.cigar), ("xla", algorithm, i)
             assert (gp.read, gp.ref, gp.score, gp.cigar) == (
-                w.read, w.ref, w.score, w.cigar), ("pallas", algorithm, i)
+                w.read, w.ref, w.score, w.cigar), ("raw", algorithm, i)
 
 
 def test_blosum62_protein_alignment():

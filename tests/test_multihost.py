@@ -1,9 +1,9 @@
 """Multi-host layer: REAL multi-process validation on CPU.
 
 Spawns two OS processes that rendezvous through ``jax.distributed``
-(Gloo collectives standing in for ICI) and run the pod driver
-(scripts/multihost_align.py) end-to-end: global-mesh sharded scoring with
-a trailing XLA all-gather, per-host packed align + decode, per-host shard
+(Gloo collectives standing in for the interconnect) and run the multi-host
+driver (scripts/multihost_align.py) end-to-end: global-mesh sharded scoring
+with a trailing XLA all-gather, per-host align + decode, per-host shard
 files. Outputs must merge to exactly the single-process engine's results.
 """
 

@@ -40,15 +40,15 @@ def test_native_matches_python_decode(rng, default_params, algorithm):
         assert g == w, (g, w)
 
 
-def test_native_packed_pointers(rng, default_params):
-    from versalignlib_tpu.ops.pallas_align import pallas_align_batch
+def test_native_dense_plane_matches_oracle(rng, default_params):
+    from versalignlib_tpu.ops.xla import align_pairs
 
     reads = random_codes(rng, 16, 12, padded=True)
     refs = random_codes(rng, 16, 16, padded=True)
-    # pallas_align_batch routes through the native decoder (packed words).
-    got = pallas_align_batch(
+    # align_pairs routes the (B, m, n) plane through the native decoder.
+    got = align_pairs(
         reads, refs, default_params, Algorithm.SMITH_WATERMAN,
-        TieBreak.DIAG_UP_LEFT, interpret=True,
+        TieBreak.DIAG_UP_LEFT,
     )
     want = oracle.compute_alignments(
         Algorithm.SMITH_WATERMAN, reads, refs, default_params
@@ -59,13 +59,13 @@ def test_native_packed_pointers(rng, default_params):
 
 def test_native_texts_preserved(default_params):
     from versalignlib_tpu.alphabet import encode
-    from versalignlib_tpu.ops.pallas_align import pallas_align_batch
+    from versalignlib_tpu.ops.xla import align_pairs
 
     reads = np.stack([encode("acGTac")])
     refs = np.stack([encode("ACgtAC")])
-    got = pallas_align_batch(
+    got = align_pairs(
         reads, refs, default_params, Algorithm.SMITH_WATERMAN,
-        TieBreak.DIAG_UP_LEFT, interpret=True,
+        TieBreak.DIAG_UP_LEFT,
         read_texts=["acGTac"], ref_texts=["ACgtAC"],
     )
     assert got[0].read == "acGTac"
@@ -125,7 +125,7 @@ def test_raw_alignment_batch_matches_objects(rng, default_params):
 
     from tests.conftest import random_codes
     from versalignlib_tpu import native
-    from versalignlib_tpu.ops.pallas_align import pallas_align_batch
+    from versalignlib_tpu.ops.xla import align_pairs
     from versalignlib_tpu.types import Algorithm, TieBreak
 
     if not native.available():
@@ -133,11 +133,10 @@ def test_raw_alignment_batch_matches_objects(rng, default_params):
     reads = random_codes(rng, 20, 14, padded=True)
     refs = random_codes(rng, 20, 18, padded=True)
     for alg in (Algorithm.SMITH_WATERMAN, Algorithm.NEEDLEMAN_WUNSCH):
-        objs = pallas_align_batch(reads, refs, default_params, alg,
-                                  TieBreak.DIAG_UP_LEFT, interpret=True)
-        batch = pallas_align_batch(reads, refs, default_params, alg,
-                                   TieBreak.DIAG_UP_LEFT, interpret=True,
-                                   raw=True)
+        objs = align_pairs(reads, refs, default_params, alg,
+                           TieBreak.DIAG_UP_LEFT)
+        batch = align_pairs(reads, refs, default_params, alg,
+                            TieBreak.DIAG_UP_LEFT, raw=True)
         assert len(batch) == len(objs)
         np.testing.assert_array_equal(batch.scores, [a.score for a in objs])
         for got, want in zip(batch, objs):
@@ -157,7 +156,7 @@ def test_raw_affine_batch_matches_objects(rng):
     # and banded raw modes).
     from tests.conftest import random_codes
     from versalignlib_tpu import native
-    from versalignlib_tpu.ops.pallas_align import pallas_align_affine_batch
+    from versalignlib_tpu.ops.xla import align_pairs
     from versalignlib_tpu.params import AlignmentParameters
     from versalignlib_tpu.types import Algorithm, TieBreak
 
@@ -169,12 +168,9 @@ def test_raw_affine_batch_matches_objects(rng):
     reads = random_codes(rng, 16, 14, padded=True)
     refs = random_codes(rng, 16, 18, padded=True)
     for alg in (Algorithm.SMITH_WATERMAN, Algorithm.NEEDLEMAN_WUNSCH):
-        objs = pallas_align_affine_batch(reads, refs, p, alg,
-                                         TieBreak.DIAG_UP_LEFT,
-                                         interpret=True)
-        batch = pallas_align_affine_batch(reads, refs, p, alg,
-                                          TieBreak.DIAG_UP_LEFT,
-                                          interpret=True, raw=True)
+        objs = align_pairs(reads, refs, p, alg, TieBreak.DIAG_UP_LEFT)
+        batch = align_pairs(reads, refs, p, alg, TieBreak.DIAG_UP_LEFT,
+                            raw=True)
         assert len(batch) == len(objs)
         np.testing.assert_array_equal(batch.scores, [a.score for a in objs])
         for got, want in zip(batch, objs):

@@ -1,14 +1,15 @@
-"""One-vs-many search kernel: bit-exact vs the oracle cross product.
+"""One-vs-many search scores: bit-exact vs the oracle cross product.
 
-Interpret mode on CPU (compiled coverage lives in scripts/tpu_check.py).
+The device path tiles the read x panel pairs on the device and scores them
+through the resolved score path (the XLA scan here on the CPU).
 """
 
 import numpy as np
 import pytest
 
 from versalignlib_tpu.ops import oracle
-from versalignlib_tpu.ops.pallas_search import cross_scores_device
 from versalignlib_tpu.params import AlignmentParameters
+from versalignlib_tpu.search import _cross_scores
 from versalignlib_tpu.types import Algorithm
 
 ALGOS = (Algorithm.SMITH_WATERMAN, Algorithm.NEEDLEMAN_WUNSCH)
@@ -35,13 +36,12 @@ def _oracle_cross(algo, reads, refs, p):
 @pytest.mark.parametrize("params", PARAM_SETS)
 @pytest.mark.parametrize("algo", ALGOS)
 def test_cross_scores_exact_both_orientations(rng, params, algo):
-    # b > r exercises lanes=reads; r > b exercises lanes=refs. Codes
-    # include 0 (padding) and 5 (N) to cover the full 6x6 semantics.
+    # b > r and r > b; codes include 0 (padding) and 5 (N) to cover the
+    # full 6x6 semantics.
     for b, m, r, n in ((13, 17, 4, 9), (3, 9, 21, 12)):
         reads = rng.integers(0, 6, size=(b, m)).astype(np.uint8)
         refs = rng.integers(0, 6, size=(r, n)).astype(np.uint8)
-        got = np.asarray(cross_scores_device(reads, refs, params, algo,
-                                             interpret=True))
+        got = np.asarray(_cross_scores(reads, refs, params, algo, "xla"))
         want = _oracle_cross(algo, reads, refs, params)
         assert np.array_equal(got, want), (b, r, algo, params.affine)
 
@@ -52,60 +52,58 @@ def test_cross_scores_matrix_mode(rng):
     p = AlignmentParameters(score_gap_read=-3, score_gap_ref=-3, matrix=mat)
     reads = rng.integers(0, 6, size=(6, 11)).astype(np.uint8)
     refs = rng.integers(0, 6, size=(10, 14)).astype(np.uint8)
-    got = np.asarray(cross_scores_device(reads, refs, p,
-                                         Algorithm.SMITH_WATERMAN,
-                                         interpret=True))
+    got = np.asarray(_cross_scores(reads, refs, p, Algorithm.SMITH_WATERMAN,
+                                   "xla"))
     want = _oracle_cross(Algorithm.SMITH_WATERMAN, reads, refs, p)
     assert np.array_equal(got, want)
 
 
 def test_search_path_uses_kernel(rng, default_params):
-    """score_matrix/best_hits with impl='pallas' route through the
-    one-vs-many kernel and still match the oracle exactly."""
+    """score_matrix/best_hits with impl='xla' route through the tiled
+    cross product and still match the oracle exactly."""
     from versalignlib_tpu.search import best_hits, score_matrix
 
     reads = rng.integers(1, 5, size=(9, 20)).astype(np.uint8)
     panel = rng.integers(1, 5, size=(5, 24)).astype(np.uint8)
-    got = score_matrix(reads, panel, default_params, impl="pallas")
+    got = score_matrix(reads, panel, default_params, impl="xla")
     want = _oracle_cross(Algorithm.SMITH_WATERMAN, reads, panel,
                          default_params)
     assert np.array_equal(got, want)
-    arg, best, _ = best_hits(reads, panel, default_params, impl="pallas",
+    arg, best, _ = best_hits(reads, panel, default_params, impl="xla",
                              align=False)
     assert np.array_equal(arg, want.argmax(axis=1))
     assert np.array_equal(best, want.max(axis=1))
 
 
-def test_dense_budget_gate(default_params):
-    """Oversize compiled search shapes are rejected with guidance instead
-    of a Mosaic OOM; interpret/xla paths are never gated."""
-    from versalignlib_tpu.search import _check_dense_budget
+def test_score_impl_routing(monkeypatch):
+    """impl='auto' picks the GPU kernel only on a CUDA device; explicit
+    impls pass through; unknown names are rejected."""
+    from versalignlib_tpu import dispatch
+    from versalignlib_tpu.ops import triton_score, xla
+    from versalignlib_tpu.utils import capabilities
     from versalignlib_tpu.utils.capabilities import DeviceCapabilities
 
-    caps = DeviceCapabilities("tpu", "v5e", 1, True, vmem_bytes=128 << 20)
-    _check_dense_budget(128, 512, default_params, "pallas", False, caps)
-    with pytest.raises(ValueError, match="banded"):
-        _check_dense_budget(20_000, 80_000, default_params, "pallas",
-                            False, caps)
-    # interpret mode / xla / no-VMEM devices pass any shape
-    _check_dense_budget(20_000, 80_000, default_params, "pallas", True,
-                        caps)
-    _check_dense_budget(20_000, 80_000, default_params, "xla", False, caps)
-    _check_dense_budget(
-        20_000, 80_000, default_params, "pallas", False,
-        DeviceCapabilities("cpu", "cpu", 1, False, vmem_bytes=0))
+    gpu = DeviceCapabilities("gpu", "NVIDIA H100 80GB HBM3", 1, 80 << 30)
+    cpu = DeviceCapabilities("cpu", "cpu", 8, None)
+    for caps, want in ((gpu, "pallas"), (cpu, "xla")):
+        monkeypatch.setattr(capabilities, "probe", lambda c=caps: c)
+        assert dispatch.resolve_score_impl() == want
+        assert dispatch.resolve_score_impl("xla") == "xla"
+    assert dispatch.device_score_fn("pallas") is triton_score.score_batch_triton
+    assert dispatch.device_score_fn("xla") is xla.score_batch
+    with pytest.raises(ValueError, match="impl"):
+        dispatch.resolve_score_impl("mosaic")
 
 
 def test_search_kernel_under_mesh(rng, default_params):
-    """shard_map + the one-vs-many kernel (interpret) on the CPU mesh."""
+    """shard_map + the tiled cross product on the CPU mesh."""
     from versalignlib_tpu.parallel import make_mesh
     from versalignlib_tpu.search import score_matrix
 
     mesh = make_mesh(8)
     reads = rng.integers(1, 5, size=(11, 16)).astype(np.uint8)
     panel = rng.integers(1, 5, size=(3, 16)).astype(np.uint8)
-    got = score_matrix(reads, panel, default_params, impl="pallas",
-                       mesh=mesh)
+    got = score_matrix(reads, panel, default_params, impl="xla", mesh=mesh)
     want = _oracle_cross(Algorithm.SMITH_WATERMAN, reads, panel,
                          default_params)
     assert np.array_equal(got, want)

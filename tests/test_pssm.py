@@ -1,18 +1,17 @@
-"""Position-specific scoring (ops/pssm.py): packing, oracle, kernel parity.
+"""Position-specific scoring (ops/pssm.py): oracle and device-scan parity.
 
 The oracle is the established numpy fills with a precomputed sub plane, so
 the key gates are (a) a PSSM built from a single sequence reproduces plain
-sequence scoring bit-for-bit, and (b) the Pallas SMEM-profile kernel equals
-the oracle on random profiles/pools across algorithms, gap models, field
-widths, and invalid codes.
+sequence scoring bit-for-bit, and (b) the device profile scan equals the
+oracle on random profiles/pools across algorithms, gap models, entry
+ranges, and invalid codes.
 """
 
 import numpy as np
 import pytest
 
 from versalignlib_tpu.ops import oracle
-from versalignlib_tpu.ops.pssm import (PssmMeta, make_pssm_sub_fn, pack_pssm,
-                                       profile_search, profile_sub_plane,
+from versalignlib_tpu.ops.pssm import (profile_search, profile_sub_plane,
                                        pssm_from_sequences,
                                        pssm_scores_device,
                                        score_profile_oracle, validate_pssm)
@@ -36,26 +35,23 @@ def test_validate_rejects_bad_tables():
     with pytest.raises(ValueError):
         validate_pssm(bad)  # col 0 nonzero
     with pytest.raises(ValueError):
-        pack_pssm(_rand_pssm(np.random.default_rng(0), 4, 6, -300, 300))
+        pssm_scores_device(bad, np.ones((2, 3), np.uint8), P_LIN,
+                           Algorithm.SMITH_WATERMAN)
 
 
-@pytest.mark.parametrize("lo,hi", [(-4, 11), (-60, 100)])
+@pytest.mark.parametrize("lo,hi", [(-4, 11), (-600, 1000)])
 def test_pack_extract_roundtrip(rng, lo, hi):
-    """sub_of(packed row, col ctx) == P[i, code]; 0 outside the table."""
-    import jax.numpy as jnp
-
+    """A one-row profile scores each code's own entry (0 outside the
+    table): the device gather == profile_sub_plane, any entry range."""
+    codes = np.arange(256, dtype=np.uint8)
     for s in (4, 6, 25):
-        P = _rand_pssm(rng, 7, s, lo, hi)
-        words, meta = pack_pssm(P)
-        col_prep, sub_of = make_pssm_sub_fn(meta)
-        codes = np.arange(256, dtype=np.int32)
-        cctx = col_prep(jnp.asarray(codes))
-        for i in range(P.shape[0]):
-            row_words = tuple(jnp.int32(int(words[i, w]))
-                              for w in range(meta.words))
-            got = np.asarray(sub_of(row_words, cctx))
-            want = np.where(codes < s, P[i, np.minimum(codes, s - 1)], 0)
-            assert np.array_equal(got, want), (s, i)
+        P = _rand_pssm(rng, 1, s, lo, hi)
+        got = np.asarray(pssm_scores_device(
+            P, codes[:, None], AlignmentParameters(score_gap_read=-1,
+                                                   score_gap_ref=-1),
+            Algorithm.NEEDLEMAN_WUNSCH))
+        want = np.maximum(profile_sub_plane(P, codes)[0], 0)
+        assert np.array_equal(got, want), s
 
 
 @pytest.mark.parametrize("algorithm", [Algorithm.SMITH_WATERMAN,
@@ -86,21 +82,17 @@ def test_single_sequence_profile_reduces_to_sequence_scoring(
 def test_kernel_matches_oracle(rng, algorithm, params, lo, hi, s):
     P = _rand_pssm(rng, 9, s, lo, hi)
     pool = rng.integers(0, min(s + 3, 28), size=(37, 13)).astype(np.uint8)
-    words, meta = pack_pssm(P)
-    got = np.asarray(pssm_scores_device(words, meta, pool, params,
-                                        algorithm, interpret=True))
+    got = np.asarray(pssm_scores_device(P, pool, params, algorithm))
     want = score_profile_oracle(P, pool, params, algorithm)
     assert np.array_equal(got, want)
 
 
 def test_kernel_multi_block_and_odd_shapes(rng):
-    """Pool crossing the 1024-lane block boundary + odd lengths."""
+    """A large pool + odd lengths."""
     P = _rand_pssm(rng, 5, 6, -3, 5)
     pool = rng.integers(0, 7, size=(1061, 7)).astype(np.uint8)
-    words, meta = pack_pssm(P)
-    got = np.asarray(pssm_scores_device(words, meta, pool, P_LIN,
-                                        Algorithm.SMITH_WATERMAN,
-                                        interpret=True))
+    got = np.asarray(pssm_scores_device(P, pool, P_LIN,
+                                        Algorithm.SMITH_WATERMAN))
     want = score_profile_oracle(P, pool, P_LIN, Algorithm.SMITH_WATERMAN)
     assert np.array_equal(got, want)
 
@@ -172,27 +164,18 @@ def test_cli_pssm_mode(rng, tmp_path):
 
 
 def test_multi_profile_search(rng):
-    """Joint pack + one-dispatch multi-profile scan == per-profile runs."""
-    from versalignlib_tpu.ops.pssm import pack_pssms
-
+    """Multi-profile search == per-profile runs, mixed shapes included."""
     Ps = [_rand_pssm(rng, 8, 6, -4, 9) for _ in range(3)]
+    Ps.append(_rand_pssm(rng, 11, 9, -4, 9))   # another (m, S)
     pool = rng.integers(0, 7, size=(70, 21)).astype(np.uint8)
-    words, meta = pack_pssms(Ps)
-    assert words.shape[0] == 3
-    got = np.asarray(pssm_scores_device(words, meta, pool, P_LIN,
-                                        Algorithm.SMITH_WATERMAN,
-                                        interpret=True))
-    for i, P in enumerate(Ps):
-        want = score_profile_oracle(P, pool, P_LIN,
-                                    Algorithm.SMITH_WATERMAN)
-        assert np.array_equal(got[i], want), i
-    # profile_search list mode matches single-profile calls.
     res = profile_search(Ps, pool, k=4)
     for i, P in enumerate(Ps):
         s1, i1 = profile_search(P, pool, k=4)
         assert np.array_equal(res[i][0], s1) and np.array_equal(res[i][1], i1)
-    with pytest.raises(ValueError, match="equal"):
-        pack_pssms([Ps[0], _rand_pssm(rng, 9, 6, -4, 9)])
+        want = score_profile_oracle(P, pool, P_LIN, Algorithm.SMITH_WATERMAN)
+        s_o, i_o = profile_search(P, pool, k=4, backend="oracle")
+        assert np.array_equal(s1, s_o) and np.array_equal(i1, i_o), i
+        assert np.array_equal(np.sort(want)[::-1][:4], s1), i
 
 
 def test_calibrate_profile_separates_planted(rng):
@@ -264,17 +247,15 @@ def test_profile_search_chunked_matches_single_sweep(rng):
 # ---------------------------------------------------------------------------
 
 def test_device_coords_match_oracle_argmax(rng):
-    """The search kernel's argmax fold == the oracle's row-major
+    """The device scan's argmax fold == the oracle's row-major
     strict-first-win scan, linear and affine."""
     from versalignlib_tpu.ops.pssm import profile_argmax_oracle
 
     P = _rand_pssm(rng, 17, 6, -4, 9)
     pool = rng.integers(0, 7, size=(70, 33)).astype(np.uint8)
-    pw, pm = pack_pssm(P)
     for p in (P_LIN, P_AFF):
-        s, r, c = pssm_scores_device(pw, pm, pool, p,
-                                     Algorithm.SMITH_WATERMAN,
-                                     interpret=True, with_coords=True)
+        s, r, c = pssm_scores_device(P, pool, p, Algorithm.SMITH_WATERMAN,
+                                     with_coords=True)
         so, ro, co = profile_argmax_oracle(P, pool, p)
         assert np.array_equal(np.asarray(s), so)
         assert np.array_equal(np.asarray(r), ro)
@@ -286,7 +267,7 @@ def test_profile_hits_and_alignments(rng):
     start and reproduce the score; device and oracle backends agree."""
     P = _rand_pssm(rng, 12, 6, -3, 8)
     pool = rng.integers(0, 7, size=(40, 25)).astype(np.uint8)
-    hd = profile_search(P, pool, k=6, backend="pallas", hits=True,
+    hd = profile_search(P, pool, k=6, backend="auto", hits=True,
                         alignments=True)
     ho = profile_search(P, pool, k=6, backend="oracle", hits=True,
                         alignments=True)
@@ -339,7 +320,7 @@ def test_profile_hits_multi_and_evalue(rng):
     P2 = _rand_pssm(rng, 8, 6, -2, 6)
     pool = rng.integers(1, 5, size=(25, 20)).astype(np.uint8)
     cal = calibrate_profile(P1, P_LIN, n=20, samples=64, backend="oracle")
-    out = profile_search([P1, P2], pool, k=3, backend="pallas", hits=True,
+    out = profile_search([P1, P2], pool, k=3, backend="auto", hits=True,
                          calibration=cal)
     assert len(out) == 2 and len(out[0]) == 3
     for hits in out:

@@ -319,12 +319,12 @@ def test_stats_split_queue_wait_vs_device(engine, rng):
 
 
 def test_align_raw_path_matches_materialized(rng):
-    """The serving raw column-store path (pallas + native decoder) returns
-    the same JSON rows as materialized Alignment objects."""
+    """The serving raw column-store path (device backend + native decoder)
+    returns the same JSON rows as materialized Alignment objects."""
     pytest.importorskip("versalignlib_tpu.native")
     from versalignlib_tpu.serve import _alignment_json
 
-    eng = AlignmentEngine(backend="pallas")
+    eng = AlignmentEngine(backend="xla")
     reads, refs = _random_pairs(rng, 5, lo=10, hi=20)
     batch = eng.compute_alignments(Algorithm.SMITH_WATERMAN, reads, refs,
                                    raw=True)
@@ -340,20 +340,20 @@ def test_align_raw_path_matches_materialized(rng):
     assert sl.to_json_rows() == rows[1:4]
 
 
-def test_align_raw_requires_pallas(engine):
+def test_align_raw_requires_device_backend(engine):
     with pytest.raises(ValueError):
         engine.compute_alignments(Algorithm.SMITH_WATERMAN, ["ACGT"],
                                   ["ACGT"], raw=True)
 
 
 def test_http_align_raw_path_end_to_end(rng):
-    """HTTP /v1/align over the pallas backend exercises the raw
+    """HTTP /v1/align over a device backend exercises the raw
     column-store serialization path end-to-end; response equals the
     materialized form field-for-field."""
     pytest.importorskip("versalignlib_tpu.native")
     import http.client
 
-    eng = AlignmentEngine(backend="pallas")
+    eng = AlignmentEngine(backend="xla")
     reads, refs = _random_pairs(rng, 4, lo=10, hi=18)
     with BatchingAligner(eng) as ba, AlignServer(ba) as server:
         server.start()
@@ -377,8 +377,8 @@ def test_http_align_cigar_only_fields(rng):
     minus the gapped strings, on both the raw and fallback paths."""
     import http.client
 
-    for backend in ("pallas", "oracle"):
-        if backend == "pallas":
+    for backend in ("xla", "oracle"):
+        if backend == "xla":
             pytest.importorskip("versalignlib_tpu.native")
         eng = AlignmentEngine(backend=backend)
         reads, refs = _random_pairs(rng, 4, lo=10, hi=18)

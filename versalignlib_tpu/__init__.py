@@ -1,21 +1,22 @@
-"""versalignlib_tpu — a TPU-native pairwise sequence-alignment framework.
+"""versalignlib_tpu — a GPU pairwise sequence-alignment framework in JAX.
 
 A from-scratch rebuild of the capabilities of ``t-neumann/versalignLib``
 (Smith-Waterman local and semi-global "Needleman-Wunsch" alignment, batched
 scoring and full-traceback alignment, pluggable kernel backends, FASTA
-ingestion, benchmarking) designed TPU-first:
+ingestion, benchmarking):
 
-- the DP matrix fill is a Pallas kernel vectorized across pairs on the VPU
-  (replacing the reference's SSE2/AVX2 lanes and OpenCL work items,
+- the dense score fill is a Pallas/Triton GPU kernel with one pair per
+  thread (replacing the reference's SSE2/AVX2 lanes and OpenCL work items,
   /root/reference/src/Kernels/AVX-SSE/SSEKernel.h:24,
   /root/reference/src/Kernels/OpenCL/opencl_c/opencl_definitions.cl:47);
-- a pure-XLA ``lax.scan`` backend serves as the portable reference kernel
-  (replacing the reference's scalar OpenMP DefaultKernel,
-  /root/reference/src/Kernels/default/DefaultKernel.cpp);
-- backends register in a dispatcher keyed by (algorithm, mode), replacing the
-  reference's dlopen'd shared objects (/root/reference/src/util/versalignUtil.cpp:35-76);
-- batches scale over a multi-chip ``jax.sharding.Mesh`` data-parallel layout
-  (the reference is single-node OpenMP only).
+- pure-XLA ``lax.scan`` fills serve as the portable path and the pointer
+  fill for traceback (replacing the reference's scalar OpenMP
+  DefaultKernel, /root/reference/src/Kernels/default/DefaultKernel.cpp);
+- backends register in a dispatcher keyed by name and routed by device
+  capability, replacing the reference's dlopen'd shared objects
+  (/root/reference/src/util/versalignUtil.cpp:35-76);
+- batches scale over a multi-device ``jax.sharding.Mesh`` data-parallel
+  layout (the reference is single-node OpenMP only).
 """
 
 from versalignlib_tpu.params import AlignmentParameters, DEFAULT_PARAMETERS
@@ -47,7 +48,7 @@ from versalignlib_tpu.stats import (GumbelCalibration, ROBINSON_FREQS,
 from versalignlib_tpu.seed import MinimizerIndex, build_index, minimizers
 from versalignlib_tpu.longread import LongReadHits, find_chains, map_long_reads
 from versalignlib_tpu.ops.pssm import (ProfileHit, calibrate_profile,
-                                       pack_pssm, profile_search,
+                                       profile_search,
                                        pssm_from_sequences)
 from versalignlib_tpu.translate import (TranslatedHits, calibrate_translated,
                                         translate_six_frames,
@@ -104,7 +105,6 @@ __all__ = [
     "ProfileHit",
     "calibrate_profile",
     "pssm_from_sequences",
-    "pack_pssm",
     "translated_search",
     "calibrate_translated",
     "translate_six_frames",

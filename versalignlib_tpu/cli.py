@@ -1,4 +1,4 @@
-"""Command-line driver: the reference example app, TPU-native.
+"""Command-line driver: the reference example app.
 
 Reproduces the behavior of the reference's ``Versalign`` executable
 (/root/reference/src/impl/main.cpp:74-215): load two FASTA files, run
@@ -88,7 +88,7 @@ def _write_alignments(path, alignments, compat: bool = False):
 
 def _run_pssm_mode(ap, args, params) -> int:
     """--pssm-from: build a log-odds profile from aligned instances and
-    scan the panel with the SMEM-profile search kernel (ops/pssm.py)."""
+    scan the panel with the device profile scan (ops/pssm.py)."""
     from versalignlib_tpu.types import Algorithm
 
     for bad, name in ((args.reads, "--reads"), (args.reads2, "--reads2"),
@@ -132,7 +132,7 @@ def _run_pssm_mode(ap, args, params) -> int:
         from versalignlib_tpu.alphabet import encode_custom
 
         pool = encode_custom(pool, args.alphabet)
-    backend = "oracle" if args.backend == "oracle" else "pallas"
+    backend = "oracle" if args.backend == "oracle" else "auto"
     cal = None
     pool_lens = ([len(s) for s in pool] if not isinstance(pool, np.ndarray)
                  else [pool.shape[1]] * len(pool))
@@ -223,6 +223,9 @@ def _run_translated_mode(ap, args) -> int:
 
 
 def main(argv=None) -> int:
+    from versalignlib_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser(prog="versalignlib_tpu", description=__doc__)
     ap.add_argument("--reads", help="FASTA or FASTQ file of reads "
                                     "(format sniffed from the first byte)")
@@ -261,14 +264,6 @@ def main(argv=None) -> int:
     ap.add_argument("--outdir", default=".", help="output directory")
     ap.add_argument("--backend", default="auto",
                     help=f"kernel backend (auto|{'|'.join(sorted(available_backends()))})")
-    ap.add_argument("--device-walk", action=argparse.BooleanOptionalAction,
-                    default=None,
-                    help="pallas backend: walk tracebacks on device and "
-                         "ship compact per-row records instead of the "
-                         "packed pointer matrix (same output, far fewer "
-                         "device->host bytes). Default: on for compiled "
-                         "TPU runs; --no-device-walk reverts to the "
-                         "pointer-D2H path")
     ap.add_argument("--match", type=int, default=2)
     ap.add_argument("--mismatch", type=int, default=-1)
     ap.add_argument("--gap-read", type=int, default=-3)
@@ -278,8 +273,6 @@ def main(argv=None) -> int:
     ap.add_argument("--band", type=int, default=0,
                     help="banded alignment with this band width (0 = dense; "
                          "use for long pairs, e.g. --band 512 for 10-100kbp)")
-    ap.add_argument("--band-tile", type=int, default=64,
-                    help="row tile of the banded kernels (auto-clamped to VMEM)")
     ap.add_argument("--matrix", default=None,
                     help="substitution matrix: 'blosum62' or a whitespace TSV "
                          "file of SxS ints (row/col 0 must be zero); implies "
@@ -688,23 +681,22 @@ def main(argv=None) -> int:
         from versalignlib_tpu.models.base import AlignmentModel
 
         if args.backend != "auto":
-            # The banded path has exactly one kernel (ops/banded.py); there
-            # is no backend dispatch to honor — say so instead of silently
-            # dropping the flag.
+            # The banded path has exactly one implementation (ops/banded.py);
+            # there is no backend dispatch to honor — say so instead of
+            # silently dropping the flag.
             _log.warning("--backend %s is ignored with --band: the banded "
-                         "path runs its own Pallas kernel", args.backend)
+                         "path runs its own band scan", args.backend)
         _log.info("banded path (band=%d) over %d pairs", args.band, len(reads))
 
         def run(algorithm):
             model = AlignmentModel("cli_banded", algorithm, params, tie,
-                                   banded=True, band=args.band,
-                                   band_tile=args.band_tile)
+                                   banded=True, band=args.band)
             return (model.score(reads_in, refs_in),
                     model.align(reads_in, refs_in))
     else:
         try:
             engine = AlignmentEngine(params=params, backend=args.backend,
-                                     tie=tie, device_walk=args.device_walk)
+                                     tie=tie)
         except KeyError as exc:
             ap.error(str(exc.args[0] if exc.args else exc))
         _log.info("using backend %s over %d pairs", engine.backend.name, len(reads))

@@ -1,6 +1,6 @@
 """Backend dispatcher.
 
-TPU-native replacement for the reference's runtime plugin system: where
+Replacement for the reference's runtime plugin system: where
 versalignLib ``dlopen``s one of four shared objects and resolves
 ``spawn_alignment_kernel`` (/root/reference/src/util/versalignUtil.cpp:35-76,
 /root/reference/src/impl/main.cpp:29-39,227-238), we keep a registry of
@@ -11,9 +11,12 @@ of the reference's ``AlignmentKernel`` interface
     score_alignments(algorithm, reads, refs)   -> (n,) int32 scores
     compute_alignments(algorithm, reads, refs) -> list[Alignment]
 
-Backends self-describe availability (e.g. Pallas kernels require a TPU unless
-run in interpret mode), the analogue of the reference's CPUID gate on the AVX
-backend (/root/reference/src/util/versalignUtil.cpp:91-181).
+Backends self-describe availability from the probed device capabilities
+(utils/capabilities.py; the hand-written GPU kernels compile only on CUDA
+devices), the analogue of the reference's CPUID gate on the AVX backend
+(/root/reference/src/util/versalignUtil.cpp:91-181). This module is the one
+place that routes by capability: "auto" backends here, and the device score
+path of traced callers (search, mesh) through :func:`resolve_score_impl`.
 """
 
 from __future__ import annotations
@@ -87,6 +90,30 @@ def available_backends() -> list[str]:
     return out
 
 
+def resolve_score_impl(impl: str = "auto") -> str:
+    """Device score path for traced callers: "pallas" (the GPU kernel) where
+    it compiles, "xla" (the row scan) otherwise."""
+    if impl == "auto":
+        from versalignlib_tpu.utils.capabilities import probe
+
+        return "pallas" if probe().gpu_kernels else "xla"
+    if impl not in ("pallas", "xla"):
+        raise ValueError(f"unknown score impl {impl!r}; use auto|pallas|xla")
+    return impl
+
+
+def device_score_fn(impl: str):
+    """Traceable ``(reads, refs, params, algorithm) -> (B,) scores`` for a
+    resolved impl (see :func:`resolve_score_impl`)."""
+    if impl == "pallas":
+        from versalignlib_tpu.ops.triton_score import score_batch_triton
+
+        return score_batch_triton
+    from versalignlib_tpu.ops.xla import score_batch
+
+    return score_batch
+
+
 def _auto_backend() -> Backend:
     best = None
     best_prio = None
@@ -118,22 +145,13 @@ class AlignmentEngine:
         backend: str = "auto",
         tie: TieBreak = TieBreak.DIAG_UP_LEFT,
         mesh=None,
-        device_walk: bool | None = None,
     ) -> None:
-        """``mesh``: optional jax.sharding.Mesh — scoring then runs
-        data-parallel over its ``data`` axis (parallel/distributed.py).
-
-        ``device_walk``: pallas backend — walk tracebacks on device
-        (linear and affine) and ship compact per-row records instead of
-        the packed pointer matrix (ops/walk.py; bit-identical output, far
-        fewer device->host bytes). Default (None) = backend auto: ON for
-        compiled TPU runs, OFF in interpreter mode. Ignored by other
-        backends."""
+        """``mesh``: optional jax.sharding.Mesh — scoring and alignment then
+        run data-parallel over its ``data`` axis (parallel/distributed.py)."""
         self.params = params
         self.backend = get_backend(backend)
         self.tie = tie
         self.mesh = mesh
-        self.device_walk = device_walk
 
     def _prepare(self, reads, refs) -> tuple[np.ndarray, np.ndarray]:
         if isinstance(reads, np.ndarray) and reads.dtype == np.uint8 and reads.ndim == 2:
@@ -158,7 +176,7 @@ class AlignmentEngine:
         if self.mesh is not None:
             from versalignlib_tpu.parallel.distributed import distributed_score_batch
 
-            impl = "pallas" if self.backend.name == "pallas" else "xla"
+            impl = "xla" if self.backend.name == "xla" else "auto"
             return distributed_score_batch(
                 reads_enc, refs_enc, self.params, algorithm,
                 mesh=self.mesh, impl=impl,
@@ -172,43 +190,42 @@ class AlignmentEngine:
         self, algorithm: Algorithm, reads, refs, raw: bool = False,
         gapped: bool = True,
     ) -> list[Alignment]:
-        """``raw=True`` (pallas backend only): return the
+        """``raw=True``: return the
         :class:`~versalignlib_tpu.types.AlignmentBatch` column store instead
         of per-pair ``Alignment`` objects — no Python object materialization
-        (serving/bulk hot path; requires the native decoder).
-        ``gapped=False`` (raw only): CIGAR-only columns — the walk skips
-        gapped-string emission entirely (score/coords/CIGAR carry the same
-        information; the gapped buffers are a display format)."""
+        (serving/bulk hot path; requires the native decoder and a device
+        backend). ``gapped=False`` (raw only): CIGAR-only columns — the walk
+        skips gapped-string emission entirely (score/coords/CIGAR carry the
+        same information; the gapped buffers are a display format)."""
         reads_enc, refs_enc = self._prepare(reads, refs)
-        if raw:
-            if self.mesh is not None or self.backend.name != "pallas":
-                raise ValueError("raw alignment batches require the pallas "
-                                 "backend without a mesh")
-            return self.backend.compute_alignments(
-                algorithm, reads_enc, refs_enc, self.params, self.tie,
-                device_walk=self.device_walk, raw=True, gapped=gapped,
-            )
+        if raw and not supports_raw(self.backend):
+            raise ValueError("raw alignment batches require the native "
+                             "decoder and a device backend")
         if self.mesh is not None:
-            # Production pod path: every shard runs the packed Pallas fill
-            # (2-bit linear / 4-bit affine words); affine routes through the
-            # mesh too (canonical flavor enforced) instead of silently
-            # bypassing it.
             from versalignlib_tpu.parallel.distributed import (
                 distributed_align_batch,
             )
 
             return distributed_align_batch(
                 reads_enc, refs_enc, self.params, algorithm, self.tie,
-                mesh=self.mesh,
+                mesh=self.mesh, raw=raw, gapped=gapped,
             )
-        if self.backend.name == "pallas":
+        if raw:
             return self.backend.compute_alignments(
                 algorithm, reads_enc, refs_enc, self.params, self.tie,
-                device_walk=self.device_walk,
+                raw=True, gapped=gapped,
             )
         return self.backend.compute_alignments(
             algorithm, reads_enc, refs_enc, self.params, self.tie
         )
+
+
+def supports_raw(backend: Backend) -> bool:
+    """Whether ``backend`` can return raw column-store batches: a device
+    backend with the native decoder built."""
+    from versalignlib_tpu import native
+
+    return backend.name != "oracle" and native.available()
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Long-read mapping: minimizer seeding + chaining + TPU banded extension.
+"""Long-read mapping: minimizer seeding + chaining + banded extension.
 
 ADDITIVE — completes the mapping ladder. Panel search (``search.py``) is
 read-vs-entries; window mapping (``refmap.py``) is exhaustive-exact to
@@ -16,10 +16,10 @@ answer:
    bound extend a chain, scored by anchor count minus a diagonal-drift
    penalty. The best chain fixes the locus/strand; the best chain at a
    DIFFERENT locus feeds MAPQ.
-3. **Extend** (TPU): one banded alignment of the oriented read against
+3. **Extend** (device): one banded alignment of the oriented read against
    the chained reference window (band sized from the chain's diagonal
-   spread) through ``ops/banded.py`` — the framework's long-pair kernels
-   do the only heavy DP, batched across reads.
+   spread) through ``ops/banded.py`` — the framework's long-pair band
+   scan does the only heavy DP, batched across reads.
 
 The result is exact WITHIN the seeded locus (banded DP), heuristic in
 locus choice (as all seed-and-extend mappers are) — use refmap for
@@ -198,14 +198,13 @@ def map_long_reads(
     pad: int = 256,
     band_slack: int = 128,
     tie: TieBreak = TieBreak.DIAG_UP_LEFT,
-    interpret: bool | None = None,
 ) -> LongReadHits:
     """Seed-chain-extend mapping of long reads against indexed references.
 
     ``references``: sequences or a prebuilt
     :class:`~versalignlib_tpu.seed.MinimizerIndex` PLUS the sequences —
     pass ``(index, seqs)`` to reuse an index. The extension runs the
-    banded Pallas kernel per read over the chained window, band =
+    band scan per read over the chained window, band =
     chain drift + ``band_slack``; alignments come back in GLOBAL
     reference coordinates. DNA-only (seeding needs the complement).
     """
@@ -257,7 +256,7 @@ def map_long_reads(
         L = int(codes.shape[0])
         # Window anchored on the CHAIN DIAGONAL: read row q aligns near
         # window column q (slope 1, intercept ~0) — exactly the geometry
-        # the banded kernel's moving band tracks when the read and window
+        # the band scan's moving band tracks when the read and window
         # have EQUAL padded lengths. The band then only needs the chain's
         # indel drift plus slack (plus any start-clamp shift at a contig
         # edge).
@@ -267,7 +266,7 @@ def map_long_reads(
         jobs.append((i, c.ref_id, oriented, w_lo, band))
 
     # Phase 2 (device): banded extension, batched by (padded-length, band)
-    # bucket so each bucket is one kernel shape.
+    # bucket so each bucket is one compiled shape.
     from versalignlib_tpu.ops.banded import banded_align_batch
 
     def _bucket(n: int, floor: int = 256) -> int:
@@ -291,8 +290,7 @@ def map_long_reads(
             fd[row, : win.shape[0]] = win
         got = banded_align_batch(rd, fd, params,
                                  Algorithm.SMITH_WATERMAN,
-                                 band=min(band + 64, P), tie=tie,
-                                 interpret=interpret)
+                                 band=min(band + 64, P), tie=tie)
         for row, j in enumerate(members):
             i, _, _, w_lo, _ = jobs[j]
             a = got[row]

@@ -15,8 +15,8 @@ from versalignlib_tpu.types import Algorithm, Alignment, TieBreak
 class AlignmentModel:
     """Immutable model config; hashable, so it can key jit caches.
 
-    ``banded`` models route scoring through the banded kernel
-    (ops/banded.py); dense models go through the backend dispatcher.
+    ``banded`` models route through the band scan (ops/banded.py); dense
+    models go through the backend dispatcher.
     """
 
     name: str
@@ -25,11 +25,6 @@ class AlignmentModel:
     tie: TieBreak = TieBreak.DIAG_UP_LEFT
     banded: bool = False
     band: int = 512
-    band_tile: int = 256
-    #: traceback walk on device (None = backend auto: on for compiled TPU
-    #: runs). Banded and dense-pallas paths both honor it; setting it with
-    #: a non-pallas dense backend raises at align() time.
-    device_walk: bool | None = None
     #: custom alphabet string for encoding (None = the reference DNA table);
     #: char i maps to code i+1, code 0 stays the padding sentinel.
     alphabet: str | None = None
@@ -63,7 +58,7 @@ class AlignmentModel:
 
             return banded_score_batch(
                 reads_enc, refs_enc, self.params, self.algorithm,
-                band=self.band, tile=self.band_tile,
+                band=self.band,
             )
         from versalignlib_tpu.dispatch import get_backend
 
@@ -81,24 +76,11 @@ class AlignmentModel:
             reads_enc, refs_enc = self._encode(reads, refs)
             return banded_align_batch(
                 reads_enc, refs_enc, self.params, self.algorithm,
-                band=self.band, tile=self.band_tile, tie=self.tie,
-                device_walk=self.device_walk,
+                band=self.band, tie=self.tie,
             )
         reads_enc, refs_enc = self._encode(reads, refs)
         from versalignlib_tpu.dispatch import get_backend
 
-        be = get_backend(backend)
-        if be.name == "pallas":
-            return be.compute_alignments(
-                self.algorithm, reads_enc, refs_enc, self.params, self.tie,
-                device_walk=self.device_walk,
-            )
-        if self.device_walk is not None:
-            raise ValueError(
-                "device_walk is only supported by the banded path and the "
-                f"pallas backend; got backend={be.name!r}. Leave device_walk"
-                "=None (backend auto) or select backend='pallas'."
-            )
-        return be.compute_alignments(
+        return get_backend(backend).compute_alignments(
             self.algorithm, reads_enc, refs_enc, self.params, self.tie
         )

@@ -71,23 +71,21 @@ def protein_smith_waterman(
 
 def banded_smith_waterman(
     band: int = 512,
-    tile: int = 256,
     params: AlignmentParameters = DEFAULT_PARAMETERS,
 ) -> AlignmentModel:
     """Banded local scoring for long pairs (additive over the reference)."""
     return AlignmentModel(
         "banded_smith_waterman", Algorithm.SMITH_WATERMAN, params,
-        banded=True, band=band, band_tile=tile,
+        banded=True, band=band,
     )
 
 
 def banded_needleman_wunsch(
     band: int = 512,
-    tile: int = 256,
     params: AlignmentParameters = DEFAULT_PARAMETERS,
 ) -> AlignmentModel:
     """Banded semi-global scoring for long pairs (BASELINE config 4)."""
     return AlignmentModel(
         "banded_needleman_wunsch", Algorithm.NEEDLEMAN_WUNSCH, params,
-        banded=True, band=band, band_tile=tile,
+        banded=True, band=band,
     )

@@ -3,7 +3,7 @@
 Build: ``make -C versalignlib_tpu/native`` (or automatic on first import).
 The reference ships its runtime as dlopen'd C++ shared objects
 (/root/reference/src/util/versalignUtil.cpp:35-76); here the native layer
-covers the host-side hot paths around the TPU kernels — batch traceback
+covers the host-side hot paths around the device fills — batch traceback
 decode and FASTA parsing — behind pure-Python fallbacks.
 """
 
@@ -65,18 +65,17 @@ def _load() -> ctypes.CDLL | None:
         ]
         lib.val_decode_banded.restype = ctypes.c_int
         lib.val_decode_banded.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int,      # ptr, band, win
-            ctypes.c_void_p, ctypes.c_void_p,                 # offsets, wbase
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,   # ptr, band, offsets
             ctypes.c_void_p, ctypes.c_void_p,                 # reads, refs
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # starts, scores
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # b, m_rows, m, n
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,         # b, m, n
             ctypes.c_int,                                     # is_affine
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # out bufs
             ctypes.c_int, ctypes.c_void_p, ctypes.c_int,      # cigar_cap, meta, threads
         ]
         lib.val_decode_batch.restype = ctypes.c_int
         lib.val_decode_batch.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int,      # ptr, kind, pack
+            ctypes.c_void_p,                                  # ptr
             ctypes.c_void_p, ctypes.c_void_p,                 # reads, refs
             ctypes.c_char_p, ctypes.c_char_p,                 # texts
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # starts, scores
@@ -108,7 +107,7 @@ def available() -> bool:
 
 
 def decode_batch_native(
-    ptr,  # (b, m, n) uint8 dense OR (words (b, m, nc) int32, pack) tuple
+    ptr: np.ndarray,  # (b, m, n) uint8 pointer plane
     reads: np.ndarray,
     refs: np.ndarray,
     start_read_pos: np.ndarray,
@@ -143,19 +142,7 @@ def decode_batch_native(
     if lib is None:
         raise ImportError(f"native decoder unavailable: {_build_error}")
 
-    if isinstance(ptr, tuple):
-        words, pack = ptr
-        ptr_arr = np.ascontiguousarray(words, dtype=np.int32)
-        kind = 1
-    elif np.asarray(ptr).ndim == 2:
-        # Device-walk row records (b, m) int32 (ops/walk.py).
-        ptr_arr = np.ascontiguousarray(ptr, dtype=np.int32)
-        kind = 2
-        pack = 16
-    else:
-        ptr_arr = np.ascontiguousarray(ptr, dtype=np.uint8)
-        kind = 0
-        pack = 1
+    ptr_arr = np.ascontiguousarray(ptr, dtype=np.uint8)
 
     reads = np.ascontiguousarray(reads, dtype=np.uint8)
     refs = np.ascontiguousarray(refs, dtype=np.uint8)
@@ -191,7 +178,7 @@ def decode_batch_native(
         n_threads = min(os.cpu_count() or 1, 8)
 
     rc = lib.val_decode_batch(
-        ptr_arr.ctypes.data_as(ctypes.c_void_p), kind, pack,
+        ptr_arr.ctypes.data_as(ctypes.c_void_p),
         reads.ctypes.data_as(ctypes.c_void_p), refs.ctypes.data_as(ctypes.c_void_p),
         rt_buf, ft_buf,
         start_r.ctypes.data_as(ctypes.c_void_p),
@@ -239,34 +226,6 @@ def decode_batch_native(
     return out
 
 
-def replay_records_native(
-    records: np.ndarray,  # (b, m) int32 device-walk row records
-    reads: np.ndarray,
-    refs: np.ndarray,
-    start_read_pos: np.ndarray,
-    start_ref_pos: np.ndarray,
-    scores: np.ndarray,
-    params,
-    algorithm,
-    read_texts: list[str] | None = None,
-    ref_texts: list[str] | None = None,
-    raw: bool = False,
-    gapped: bool = True,
-    n_threads: int | None = None,
-):
-    """Replay device-walk row records (ops/walk.py) through the C++ walker.
-
-    Same outputs as :func:`decode_batch_native`; the walk consumes one
-    ``left_count*4 | exit_code`` record per visited row instead of fetching
-    2D pointers — the pointer matrix never left the device.
-    """
-    return decode_batch_native(
-        np.ascontiguousarray(records, dtype=np.int32), reads, refs,
-        start_read_pos, start_ref_pos, params, algorithm,
-        scores=scores, read_texts=read_texts, ref_texts=ref_texts,
-        raw=raw, gapped=gapped, n_threads=n_threads)
-
-
 def parse_fasta_codes(path) -> tuple[np.ndarray, np.ndarray]:
     """Native fused FASTA parse + encode + pad.
 
@@ -297,11 +256,9 @@ def parse_fasta_codes(path) -> tuple[np.ndarray, np.ndarray]:
 
 
 def decode_banded_native(
-    words: np.ndarray,      # (b, m_rows, win//8) int32 window-relative ptrs
+    ptr: np.ndarray,        # (b, m, band) uint8 band-relative pointers
     band: int,
-    win: int,
-    offsets: np.ndarray,    # (m_rows,) int32 band start per row
-    wbase: np.ndarray,      # (m_rows,) int32 window start per row
+    offsets: np.ndarray,    # (m,) int32 band start per row
     reads: np.ndarray,
     refs: np.ndarray,
     start_read_pos: np.ndarray,
@@ -324,9 +281,8 @@ def decode_banded_native(
         raise ImportError(f"native decoder unavailable: {_build_error}")
     import ctypes as ct
 
-    words = np.ascontiguousarray(words, dtype=np.int32)
+    ptr = np.ascontiguousarray(ptr, dtype=np.uint8)
     offsets = np.ascontiguousarray(offsets, dtype=np.int32)
-    wbase = np.ascontiguousarray(wbase, dtype=np.int32)
     reads = np.ascontiguousarray(reads, dtype=np.uint8)
     refs = np.ascontiguousarray(refs, dtype=np.uint8)
     start_r = np.ascontiguousarray(start_read_pos, dtype=np.int32)
@@ -334,7 +290,6 @@ def decode_banded_native(
     scores = np.ascontiguousarray(scores, dtype=np.int32)
     b, m = reads.shape
     n = refs.shape[1]
-    m_rows = words.shape[1]
     aln_cap = m + n
     cigar_cap = 3 * aln_cap + 16
     read_g = np.zeros((b, aln_cap), dtype=np.uint8)
@@ -344,12 +299,12 @@ def decode_banded_native(
     if n_threads is None:
         n_threads = min(os.cpu_count() or 1, 8)
     rc = lib.val_decode_banded(
-        words.ctypes.data_as(ct.c_void_p), band, win,
-        offsets.ctypes.data_as(ct.c_void_p), wbase.ctypes.data_as(ct.c_void_p),
+        ptr.ctypes.data_as(ct.c_void_p), band,
+        offsets.ctypes.data_as(ct.c_void_p),
         reads.ctypes.data_as(ct.c_void_p), refs.ctypes.data_as(ct.c_void_p),
         start_r.ctypes.data_as(ct.c_void_p), start_f.ctypes.data_as(ct.c_void_p),
         scores.ctypes.data_as(ct.c_void_p),
-        b, m_rows, m, n,
+        b, m, n,
         1 if params.affine else 0,
         read_g.ctypes.data_as(ct.c_void_p), ref_g.ctypes.data_as(ct.c_void_p),
         cigar.ctypes.data_as(ct.c_void_p), cigar_cap,

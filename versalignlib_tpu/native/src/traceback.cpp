@@ -1,9 +1,8 @@
 // Native batch traceback decoder.
 //
-// The DP fill runs on TPU (Pallas kernels emit 2-bit-packed pointer words);
+// The DP fill runs on the device and emits one uint8 pointer code per cell;
 // the backtrack walk is inherently sequential and data-dependent, so it runs
-// on host — this is the TPU-era analogue of the reference's scalar per-lane
-// backtracks (/root/reference/src/Kernels/AVX-SSE/SSEKernel.cpp:785-860) and
+// on host — the analogue of the reference's scalar per-lane backtracks (/root/reference/src/Kernels/AVX-SSE/SSEKernel.cpp:785-860) and
 // its OpenMP-parallel result collection (OpenCLKernel.cpp:613-645). Threaded
 // over pairs with std::thread.
 //
@@ -26,10 +25,6 @@ constexpr int START = 0, UP = 1, LEFT = 2, DIAG = 3;
 
 struct Args {
   const void *ptr_data;
-  int ptr_kind;  // 0 = dense uint8 (b, m, n); 1 = packed int32 (b, m, nc);
-                 // 2 = device-walk row records (b, m) int32 (ops/walk.py:
-                 //     left_count*4 | exit_code per row)
-  int pack;
   const uint8_t *reads;  // (b, m) codes
   const uint8_t *refs;   // (b, n) codes
   const char *read_texts;  // optional (b, m) original chars
@@ -57,19 +52,6 @@ inline int sub_score(uint8_t a, uint8_t b, int match, int mismatch) {
   return a == b ? match : mismatch;
 }
 
-inline int load_ptr(const Args &A, int pair, int i, int j) {
-  const int bits = A.is_affine ? 4 : 2;
-  const int mask = A.is_affine ? 15 : 3;
-  if (A.ptr_kind == 0) {
-    const uint8_t *p = static_cast<const uint8_t *>(A.ptr_data);
-    return p[(size_t)pair * A.m * A.n + (size_t)i * A.n + j];
-  }
-  int nc = (A.n + A.pack - 1) / A.pack;
-  const int32_t *p = static_cast<const int32_t *>(A.ptr_data);
-  int32_t word = p[(size_t)pair * A.m * nc + (size_t)i * nc + j / A.pack];
-  return (word >> (bits * (j % A.pack))) & mask;
-}
-
 // CIGAR run scratch: walks emit (len << 2 | op) tokens in reverse order;
 // per-thread to avoid per-pair allocation.
 thread_local std::vector<uint32_t> tl_runs;
@@ -94,18 +76,12 @@ inline int format_cigar(const uint32_t *runs, int runs_n, char *cg, int cap) {
   return clen;
 }
 
-// The linear walk, templated on pointer layout and gapped-string emission so
-// the per-step loop carries no dead branches. kPtr: 0 dense codes, 1 packed
-// 2-bit codes in int32 words (the Pallas kernels' native stream; pack is
-// always a power of two, so word index / field shift are shifts and masks —
-// the div/mod pair of the previous revision cost ~40 cycles per step),
-// 2 device-walk row records (ops/walk.py): per row, ``left_count*4 | code``
-// — the move at (rp, fp) is LEFT while fp is above the row's stop column
-// (fp_at_row_entry - left_count), then the recorded exit code; no 2D
-// pointer fetches at all. CIGAR runs are accumulated during the walk
-// instead of re-scanning the gapped strings afterwards.
-template <int kPtr, bool kGapped>
-void decode_pair_impl(const Args &A, int k, int nc, int pshift) {
+// The linear walk over a dense (m, n) uint8 pointer plane, templated on
+// gapped-string emission so the per-step loop carries no dead branches.
+// CIGAR runs are accumulated during the walk instead of re-scanning the
+// gapped strings afterwards.
+template <bool kGapped>
+void decode_pair_impl(const Args &A, int k) {
   const int m = A.m, n = A.n;
   const int aln_cap = m + n;
   char *rg = kGapped ? A.read_gapped + (size_t)k * aln_cap : nullptr;
@@ -114,22 +90,13 @@ void decode_pair_impl(const Args &A, int k, int nc, int pshift) {
   const uint8_t *ref = A.refs + (size_t)k * n;
   const char *rt = A.read_texts ? A.read_texts + (size_t)k * m : nullptr;
   const char *ft = A.ref_texts ? A.ref_texts + (size_t)k * n : nullptr;
-  const int32_t *pw =
-      kPtr == 1 ? static_cast<const int32_t *>(A.ptr_data) + (size_t)k * m * nc
-                : nullptr;
   const uint8_t *pd =
-      kPtr == 0 ? static_cast<const uint8_t *>(A.ptr_data) + (size_t)k * m * n
-                : nullptr;
-  const int32_t *recs =
-      kPtr == 2 ? static_cast<const int32_t *>(A.ptr_data) + (size_t)k * m
-                : nullptr;
-  const int jmask = A.pack - 1;
+      static_cast<const uint8_t *>(A.ptr_data) + (size_t)k * m * n;
   const bool want_cost = A.scores_in == nullptr;
 
   int rp = A.start_r[k];
   int fp = A.start_f[k];
   const int start_rp = rp, start_fp = fp;
-  int rec_row = -2, rec_stop = 0, rec_code = START;
 
   if ((size_t)tl_runs.size() < (size_t)aln_cap + 1) tl_runs.resize(aln_cap + 1);
   uint32_t *runs = tl_runs.data();
@@ -145,21 +112,8 @@ void decode_pair_impl(const Args &A, int k, int nc, int pshift) {
     int bt;
     if (rp < 0) {
       bt = START;  // boundary row 0
-    } else if (kPtr == 2) {
-      // Records fully encode boundary behavior (dense NW col -1 UP chains
-      // are recorded as UP rows; banded band-edge stops as START) — never
-      // apply the 2D boundary shortcuts below to a record stream.
-      if (rp != rec_row) {
-        rec_row = rp;
-        int32_t rec = recs[rp];
-        rec_stop = fp - (rec >> 2);
-        rec_code = rec & 3;
-      }
-      bt = fp > rec_stop ? LEFT : rec_code;
     } else if (fp < 0) {
       bt = A.is_nw ? UP : START;  // boundary col 0
-    } else if (kPtr == 1) {
-      bt = (pw[(size_t)rp * nc + (fp >> pshift)] >> (2 * (fp & jmask))) & 3;
     } else {
       bt = pd[(size_t)rp * n + fp];
     }
@@ -237,32 +191,18 @@ void decode_pair_impl(const Args &A, int k, int nc, int pshift) {
 }
 
 void decode_pair(const Args &A, int k) {
-  const int nc = (A.n + A.pack - 1) / A.pack;
-  const int pshift = __builtin_ctz(A.pack);
-  if (A.ptr_kind == 2) {
-    if (A.read_gapped)
-      decode_pair_impl<2, true>(A, k, nc, pshift);
-    else
-      decode_pair_impl<2, false>(A, k, nc, pshift);
-  } else if (A.ptr_kind == 1) {
-    if (A.read_gapped)
-      decode_pair_impl<1, true>(A, k, nc, pshift);
-    else
-      decode_pair_impl<1, false>(A, k, nc, pshift);
-  } else {
-    if (A.read_gapped)
-      decode_pair_impl<0, true>(A, k, nc, pshift);
-    else
-      decode_pair_impl<0, false>(A, k, nc, pshift);
-  }
+  if (A.read_gapped)
+    decode_pair_impl<true>(A, k);
+  else
+    decode_pair_impl<false>(A, k);
 }
 
 // Affine three-state (H/E/F) walk mirroring gotoh._affine_traceback: state H
 // follows hptr; E/F emit LEFT/UP steps and return to H when the extend bit
 // is clear. Scores must be supplied by the caller (the device kernels emit
-// exact end-cell scores). 4-bit codes, pack a power of two (8 per word).
-template <bool kPacked, bool kGapped>
-void decode_pair_affine_impl(const Args &A, int k, int nc, int pshift) {
+// exact end-cell scores). 4-bit codes, one per byte.
+template <bool kGapped>
+void decode_pair_affine_impl(const Args &A, int k) {
   const int m = A.m, n = A.n;
   const int aln_cap = m + n;
   char *rg = kGapped ? A.read_gapped + (size_t)k * aln_cap : nullptr;
@@ -271,13 +211,8 @@ void decode_pair_affine_impl(const Args &A, int k, int nc, int pshift) {
   const uint8_t *ref = A.refs + (size_t)k * n;
   const char *rt = A.read_texts ? A.read_texts + (size_t)k * m : nullptr;
   const char *ft = A.ref_texts ? A.ref_texts + (size_t)k * n : nullptr;
-  const int32_t *pw =
-      kPacked ? static_cast<const int32_t *>(A.ptr_data) + (size_t)k * m * nc
-              : nullptr;
   const uint8_t *pd =
-      kPacked ? nullptr
-              : static_cast<const uint8_t *>(A.ptr_data) + (size_t)k * m * n;
-  const int jmask = A.pack - 1;
+      static_cast<const uint8_t *>(A.ptr_data) + (size_t)k * m * n;
 
   int rp = A.start_r[k];
   int fp = A.start_f[k];
@@ -314,12 +249,7 @@ void decode_pair_affine_impl(const Args &A, int k, int nc, int pshift) {
       ++steps;
       continue;
     }
-    int code;
-    if (kPacked) {
-      code = (pw[(size_t)rp * nc + (fp >> pshift)] >> (4 * (fp & jmask))) & 15;
-    } else {
-      code = pd[(size_t)rp * n + fp];
-    }
+    int code = pd[(size_t)rp * n + fp];
     int hptr = code & 3;
     if (state == 0) {
       if (hptr == START) break;
@@ -385,28 +315,18 @@ void decode_pair_affine_impl(const Args &A, int k, int nc, int pshift) {
 }
 
 void decode_pair_affine(const Args &A, int k) {
-  const int nc = (A.n + A.pack - 1) / A.pack;
-  const int pshift = __builtin_ctz(A.pack);
-  if (A.ptr_kind == 1) {
-    if (A.read_gapped)
-      decode_pair_affine_impl<true, true>(A, k, nc, pshift);
-    else
-      decode_pair_affine_impl<true, false>(A, k, nc, pshift);
-  } else {
-    if (A.read_gapped)
-      decode_pair_affine_impl<false, true>(A, k, nc, pshift);
-    else
-      decode_pair_affine_impl<false, false>(A, k, nc, pshift);
-  }
+  if (A.read_gapped)
+    decode_pair_affine_impl<true>(A, k);
+  else
+    decode_pair_affine_impl<false>(A, k);
 }
 
-void decode_pair_banded(const Args &A, const int32_t *offsets,
-                        const int32_t *wbase, int band, int win, int m_rows,
+void decode_pair_banded(const Args &A, const int32_t *offsets, int band,
                         int k) {
-  // Window-relative pointer walk (canonical flavor, linear or affine):
-  // pointer of cell (i, j) lives at window index j - wbase[i] (8 codes per
-  // int32 word; 2-bit linear, 4-bit affine hptr|e_ext<<2|f_ext<<3); the
-  // in-band check uses the per-row offsets. Leaving the band or reaching
+  // Band-relative pointer walk (linear or affine): the pointer of cell
+  // (i, j) is byte j - offsets[i] of row i of the pair's (m, band) uint8
+  // plane (2-bit linear codes, 4-bit affine hptr|e_ext<<2|f_ext<<3).
+  // Leaving the band or reaching
   // the free row-0/col-0 boundary ends the walk. Traceback starts are
   // clamped to valid read rows by the caller (NW last-valid-row rule), so
   // padding rows are never visited and no NUL characters are emitted.
@@ -416,11 +336,8 @@ void decode_pair_banded(const Args &A, const int32_t *offsets,
   char *fg = A.ref_gapped + (size_t)k * aln_cap;
   const uint8_t *read = A.reads + (size_t)k * m;
   const uint8_t *ref = A.refs + (size_t)k * n;
-  const int bits = A.is_affine ? 4 : 2;
-  const int mask = A.is_affine ? 15 : 3;
-  const int wc = win / 8;
-  const int32_t *words = static_cast<const int32_t *>(A.ptr_data) +
-                         (size_t)k * m_rows * wc;
+  const uint8_t *plane = static_cast<const uint8_t *>(A.ptr_data) +
+                         (size_t)k * m * band;
 
   int rp = A.start_r[k];
   int fp = A.start_f[k];
@@ -431,9 +348,7 @@ void decode_pair_banded(const Args &A, const int32_t *offsets,
   while (steps <= aln_cap && rp >= 0 && fp >= 0 && rp < m) {
     int kb = fp - offsets[rp];
     if (kb < 0 || kb >= band) break;
-    int kw = fp - wbase[rp];
-    int32_t word = words[(size_t)rp * wc + kw / 8];
-    int code = (word >> (bits * (kw % 8))) & mask;
+    int code = plane[(size_t)rp * band + kb];
     int hp = code & 3;
     char rc = kCodeChar[read[rp] <= 5 ? read[rp] : 0];
     char fc = kCodeChar[ref[fp] <= 5 ? ref[fp] : 0];
@@ -523,18 +438,18 @@ void decode_pair_banded(const Args &A, const int32_t *offsets,
 }  // namespace
 
 extern "C" int val_decode_banded(
-    const void *ptr_data, int band, int win, const int32_t *offsets,
-    const int32_t *wbase, const uint8_t *reads, const uint8_t *refs,
+    const void *ptr_data, int band, const int32_t *offsets,
+    const uint8_t *reads, const uint8_t *refs,
     const int32_t *start_r, const int32_t *start_f, const int32_t *scores_in,
-    int b, int m_rows, int m, int n, int is_affine, char *read_gapped,
+    int b, int m, int n, int is_affine, char *read_gapped,
     char *ref_gapped, char *cigar_out, int cigar_cap, int32_t *meta,
     int n_threads) {
-  Args A{ptr_data, 1, 8, reads, refs, nullptr, nullptr, start_r, start_f,
+  Args A{ptr_data, reads, refs, nullptr, nullptr, start_r, start_f,
          scores_in, b, m, n, 0, 0, 0, 0, 0, is_affine, read_gapped,
          ref_gapped, cigar_out, cigar_cap, meta};
   if (n_threads <= 1 || b < 64) {
     for (int kk = 0; kk < b; ++kk)
-      decode_pair_banded(A, offsets, wbase, band, win, m_rows, kk);
+      decode_pair_banded(A, offsets, band, kk);
     return 0;
   }
   std::atomic<int> next{0};
@@ -546,7 +461,7 @@ extern "C" int val_decode_banded(
         if (kk >= A.b) return;
         int end = kk + 16 < A.b ? kk + 16 : A.b;
         for (; kk < end; ++kk)
-          decode_pair_banded(A, offsets, wbase, band, win, m_rows, kk);
+          decode_pair_banded(A, offsets, band, kk);
       }
     });
   }
@@ -555,14 +470,13 @@ extern "C" int val_decode_banded(
 }
 
 extern "C" int val_decode_batch(
-    const void *ptr_data, int ptr_kind, int pack, const uint8_t *reads,
+    const void *ptr_data, const uint8_t *reads,
     const uint8_t *refs, const char *read_texts, const char *ref_texts,
     const int32_t *start_r, const int32_t *start_f, const int32_t *scores_in,
     int b, int m, int n, int match, int mismatch, int gap_read, int gap_ref,
     int is_nw, int is_affine, char *read_gapped, char *ref_gapped,
     char *cigar_out, int cigar_cap, int32_t *meta, int n_threads) {
-  if (pack <= 0 || (pack & (pack - 1)) != 0) return -2;  // power of two only
-  Args A{ptr_data, ptr_kind, pack, reads, refs, read_texts, ref_texts,
+  Args A{ptr_data, reads, refs, read_texts, ref_texts,
          start_r, start_f, scores_in, b, m, n, match, mismatch, gap_read,
          gap_ref, is_nw, is_affine, read_gapped, ref_gapped, cigar_out,
          cigar_cap, meta};

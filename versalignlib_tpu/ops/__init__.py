@@ -1,1 +1,1 @@
-"""Kernel backends: oracle (numpy), XLA (lax.scan), Pallas (TPU)."""
+"""Kernel backends: oracle (numpy), XLA (lax.scan), Pallas/Triton (GPU)."""

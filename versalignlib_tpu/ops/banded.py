@@ -1,4 +1,4 @@
-"""Banded DP for long pairs (10-100kbp), tiled through VMEM.
+"""Banded DP for long pairs (10-100kbp): numpy oracles and an XLA band scan.
 
 The reference has no banding and no intra-pair capacity strategy beyond
 spilling the pointer matrix to global memory (SURVEY.md §5 "long-context";
@@ -8,19 +8,16 @@ and int16 scores. This module is the greenfield long-pair path:
 - a diagonal band of static width W follows the main diagonal with per-row
   offset ``o(i) = clamp(i*n//m - W/2, 0, n-W)``; cells outside the band are
   -inf (standard banded alignment — an approximation by construction);
-- the read streams through VMEM in row tiles: a ``lax.scan`` over tiles
-  re-invokes a single-block Pallas kernel, carrying the (W+D, 8, 128) band
-  state and running best through HBM between tiles (~2MB per boundary vs
-  TILE*W*1024 cells of compute — negligible);
-- the ref window for a tile is a dynamic slice of size WIN = W + TILE*D
-  (D = max per-row band advance, ceil(n/m)), so neither sequence is ever
-  fully VMEM-resident: 100kbp pairs run in ~6MB of VMEM;
-- inter-pair packing is the same (8, 128)x1024 layout as the dense kernels.
+- the device path is a ``lax.scan`` over read rows that carries one (B, W)
+  band row, shifts it by each row's offset step, and resolves the
+  within-row left dependency with the same exact prefix-max identity as
+  the dense scan (ops/xla.py ``_row_solve``);
+- traceback emits a (B, m, W) uint8 band-relative pointer plane that the
+  native walker (``native.decode_banded_native``) decodes on the host.
 
-Scores use int32 (the reference's int16 would overflow beyond ~16kbp gaps);
-linear gaps (reference parity). Exactness vs the numpy banded oracle is
-gated by tests/test_banded.py, including band == full-matrix equivalence
-when W covers the whole ref.
+Scores use int32 (the reference's int16 would overflow beyond ~16kbp gaps).
+Exactness vs the numpy banded oracles is gated by tests/test_banded.py,
+including band == full-matrix equivalence when W covers the whole ref.
 """
 
 from __future__ import annotations
@@ -30,35 +27,23 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from versalignlib_tpu.alphabet import substitution_scores
-from versalignlib_tpu.ops.pallas_score import (
-    BLOCK_LANES,
-    BLOCK_PAIRS,
-    BLOCK_SUBLANES,
-    NEG_INF_I32,
-    _is_tpu,
-    make_sub_fn,
-)
 from versalignlib_tpu.params import AlignmentParameters
 from versalignlib_tpu.types import Algorithm
+
+#: -inf stand-in safe against int32 adds
+NEG_INF_I32 = -(2**30)
 
 
 def band_offsets(m_pad: int, m_real: int, n: int, band: int) -> np.ndarray:
     """Per-row band start columns (0-based ref position of band cell 0).
 
-    Single source of truth shared by the oracle and the kernel wrapper.
+    Single source of truth shared by the oracles and the band scan.
     """
     i = np.arange(m_pad, dtype=np.int64)
     o = (i * n) // max(m_real, 1) - band // 2
     return np.clip(o, 0, max(n - band, 0)).astype(np.int32)
-
-
-def max_band_step(m_real: int, n: int) -> int:
-    """Max per-row band advance D = ceil(n/m) (offsets are monotone)."""
-    return max(1, -(-n // max(m_real, 1)))
 
 
 # ---------------------------------------------------------------------------
@@ -142,7 +127,7 @@ def banded_align_oracle(read, ref, p: AlignmentParameters, band: int,
                         tie=None):
     """Reference banded ALIGNMENT: full-matrix DP with -inf outside the band,
     canonical pointer flavor, explicit end-cell rules. This is the semantics
-    definition the Pallas banded traceback kernel is tested against
+    definition the XLA band scan's traceback is tested against
     (greenfield — the reference has no banding; its only long-pair strategy
     is spilling the pointer matrix to global memory,
     /root/reference/src/Kernels/OpenCL/opencl_c/alignment_kernels.cl:10-12).
@@ -348,301 +333,177 @@ def _banded_oracle_walk(ptr, in_band, read, ref, start_r, start_f, score,
 
 
 # ---------------------------------------------------------------------------
-# Pallas banded tile kernel
+# XLA band scan (score and traceback)
 # ---------------------------------------------------------------------------
+#
+# Row i's band cell k is H column o_i + 1 + k. With d = o_i - o_{i-1} >= 0,
+# its "up" source is previous-row cell k + d and its "diag" source cell
+# k + d - 1; sources past the previous band are -inf, and the cell left of
+# a band is column 0 (free, 0) only when the band starts at offset 0. Row 0
+# is the free boundary (all 0). Extending the previous row by one left cell
+# and ``d_max`` -inf cells turns both sources into one dynamic slice.
 
-def _banded_tile_kernel(offs_ref, win_start_ref, prev_ws_ref, reads_ref,
-                        ref_win_ref, state_in_ref, best_in_ref, fstate_in_ref,
-                        state_out_ref, best_out_ref, fstate_out_ref,
-                        bounce_ref, c0s_ref, c1s_ref, *,
-                        tile, band, win, shift_cap, n, run,
-                        params: AlignmentParameters, local: bool):
-    """One row tile for one 1024-pair block — window-relative formulation.
+def _band_rows(reads, refs, offsets, params: AlignmentParameters, band: int,
+               d_max: int, local: bool, canonical: bool, emit: bool,
+               mrp=None):
+    """Shared band scan. Returns (per-row outputs, final carry)."""
+    from versalignlib_tpu.alphabet import make_validity
+    from versalignlib_tpu.ops.xla import _row_solve, _row_solve_open, _sub_row
 
-    The DP state lives at WINDOW-relative positions (window = the union of
-    this tile's per-row bands, size ``win`` = band + tile*d_max): cell w of
-    the state maps to DP column ``win_start + w + 1``. Rows iterate the FULL
-    window with cells outside the row's band forced to -inf by a
-    scalar-predicated mask (r5: the band bounds are prefetch scalars, so
-    the mask is a per-(row, column) SCALAR predicate — the r4 iota
-    comparisons cost ~3 VPU ops/cell), so every inner-loop address is
-    affine in the loop index — data-dependent addressing (which stalls
-    Mosaic's pipeline, ~30us/row measured on the shifted-band design)
-    happens only ONCE per tile, in the state re-base copy. State buffers
-    carry ``shift_cap`` extra -inf-filled rows so the re-base slice stays
-    in bounds.
-
-    r5 treatments shared with the other kernels: the substitution column
-    context streams through c0s/c1s scratch once per tile, and ``run``
-    columns process per fori iteration (64 compiled) with one state
-    load/store per run. The SW zero-clamp subsumes the NEG clamp, and the
-    E/F NEG clamps pin them outside the band so no explicit F band mask is
-    needed (see _banded_align_kernel).
-
-    Scalar-prefetch: offs (tile,) per-row band starts; win_start (1,);
-    prev_ws (1,) previous tile's win_start (== win_start on the first tile).
-    best_in/out: (2, 8, 128) [running best | NW last-column max, aux].
-    fstate_*: Gotoh F state, same layout ((1, 8, 128) dummy when linear).
-    """
+    reads = reads.astype(jnp.int32)
+    refs = refs.astype(jnp.int32)
+    b, m = reads.shape
+    w = band
+    neg = jnp.int32(NEG_INF_I32)
+    affine = params.affine
     gap_read = jnp.int32(params.score_gap_read)
     gap_ref = jnp.int32(params.score_gap_ref)
-    affine = params.affine
-    open_r = jnp.int32(params.gap_open_read)
-    open_f = jnp.int32(params.gap_open_ref)
-    neg_inf = jnp.full((BLOCK_SUBLANES, BLOCK_LANES), NEG_INF_I32, jnp.int32)
-    zero = jnp.zeros((BLOCK_SUBLANES, BLOCK_LANES), jnp.int32)
-    win_start = win_start_ref[0]
+    open_read = jnp.int32(params.gap_open_read)
+    open_ref = jnp.int32(params.gap_open_ref)
+    vfn = make_validity(params.matrix)
+    d_s, u_s, l_s, s_s = (jnp.uint8(3), jnp.uint8(1), jnp.uint8(2),
+                          jnp.uint8(0))  # Trace.DIAG/UP/LEFT/START
+    neg_tail = jnp.full((b, d_max), neg, jnp.int32)
+    neg_col = jnp.full((b, 1), neg, jnp.int32)
 
-    # Re-base the carried state to this tile's window (shift >= 0, bounded
-    # by shift_cap; rows beyond `win` in the buffers are permanently -inf).
-    # state_in aliases state_out, so bounce through scratch (the shifted
-    # ranges overlap) and capture the first row's diagonal boundary — the
-    # previous row's value at column win_start — before it is shifted away.
-    shift = win_start - prev_ws_ref[0]
-    pre_diag = jnp.where(
-        shift >= 1,
-        state_in_ref[jnp.maximum(shift - 1, 0)],
-        jnp.where(win_start == 0,
-                  jnp.zeros((BLOCK_SUBLANES, BLOCK_LANES), jnp.int32),
-                  jnp.full((BLOCK_SUBLANES, BLOCK_LANES), NEG_INF_I32, jnp.int32)),
-    )
-    bounce_ref[...] = state_in_ref[pl.ds(shift, win)]
-    state_out_ref[pl.ds(0, win)] = bounce_ref[...]
-    state_out_ref[pl.ds(win, shift_cap)] = jnp.full(
-        (shift_cap, BLOCK_SUBLANES, BLOCK_LANES), NEG_INF_I32, jnp.int32)
-    best_out_ref[...] = best_in_ref[...]
-    if affine:
-        bounce_ref[...] = fstate_in_ref[pl.ds(shift, win)]
-        fstate_out_ref[pl.ds(0, win)] = bounce_ref[...]
-        fstate_out_ref[pl.ds(win, shift_cap)] = jnp.full(
-            (shift_cap, BLOCK_SUBLANES, BLOCK_LANES), NEG_INF_I32, jnp.int32)
+    def body(carry, x):
+        i, o, read_col = x
+        prev, f_prev, prev_o, best, best_i, best_j, keep = carry
+        first = i == 0
+        d = o - prev_o
+        lv = jnp.where(first | (prev_o == 0), 0, neg)
+        fill = jnp.where(first, 0, neg)
+        ext = jnp.concatenate(
+            [jnp.broadcast_to(lv, (b, 1)), prev,
+             jnp.broadcast_to(fill, (b, d_max))], axis=1)
+        src = jax.lax.dynamic_slice(ext, (0, d), (b, w + 1))
+        diag_src, up_src = src[:, :w], src[:, 1:]
+        ref_band = jax.lax.dynamic_slice(refs, (0, o), (b, w))
+        sub = _sub_row(read_col[:, None], ref_band, params.score_match,
+                       params.score_mismatch, params.matrix)
+        diag_v = diag_src + sub
+        lb = jnp.broadcast_to(jnp.where(o == 0, 0, neg), (b, 1))
+        if affine:
+            f_ext_src = jnp.concatenate([neg_col, f_prev, neg_tail], axis=1)
+            f_up = jax.lax.dynamic_slice(f_ext_src, (0, d + 1), (b, w))
+            f_v = jnp.maximum(jnp.maximum(up_src + open_ref, f_up) + gap_ref,
+                              neg)
+            t = jnp.maximum(diag_v, f_v)
+        else:
+            up_v = up_src + gap_ref
+            t = jnp.maximum(jnp.maximum(diag_v, up_v), neg)
+        if local:
+            t = jnp.maximum(t, 0)
+        t_full = jnp.concatenate([lb, t], axis=1)
+        if affine:
+            e = jnp.maximum(_row_solve_open(t_full, open_read, gap_read), neg)
+            cur = jnp.maximum(t, e)
+        else:
+            h = _row_solve(t_full, gap_read)
+            cur = h[:, 1:]
+            left_v = h[:, :-1] + gap_read
 
-    row_prep, col_prep, sub_of = make_sub_fn(params)
-    use_cstream = params.matrix is None
-    if use_cstream:
-        # Column-context streams over the tile's ref window (amortized over
-        # the tile's row sweeps).
-        fcw = min(128, win)
-
-        def fill_cctx(j0, size):
-            fc2, fb = col_prep(ref_win_ref[pl.ds(j0, size)])
-            c0s_ref[pl.ds(j0, size)] = fc2
-            c1s_ref[pl.ds(j0, size)] = fb
-
-        if win // fcw:
-            jax.lax.fori_loop(
-                0, win // fcw, lambda c, z: (fill_cctx(c * fcw, fcw), z)[1], 0)
-        if win % fcw:
-            fill_cctx((win // fcw) * fcw, win % fcw)
-
-    # NW: window index of DP column n (band cells beyond are -inf anyway).
-    w_lastcol = (n - 1) - win_start
-
-    # R-row register wavefront (same scheme as the dense kernel): R rows of
-    # the tile advance down each column together, row r consuming row r-1's
-    # just-computed masked value from a register. R must divide tile.
-    R = 4 if tile % 4 == 0 else (2 if tile % 2 == 0 else 1)
-    at_col0 = win_start == 0
-    h_bound = jnp.where(at_col0, zero, neg_inf)
-
-    def group_body(ig, _):
-        i0 = ig * R
-        rctxs = [row_prep(reads_ref[i0 + r]) for r in range(R)]
-        lows = [offs_ref[i0 + r] - win_start for r in range(R)]
-        # Column win_start of the row above: inside the pre-shift window only
-        # for the tile's very first row (pre_diag); for every other row it is
-        # left of all bands and only the col-0 boundary survives.
-        diag0s = [jnp.where((ig == 0) & (r == 0), pre_diag, h_bound)
-                  for r in range(R)]
-
-        def run_chunk(k0, carry, size):
-            lefts, diags, evals, best, lc_best = carry
-            old = state_out_ref[pl.ds(k0, size)]
-            if use_cstream:
-                c0c = c0s_ref[pl.ds(k0, size)]
-                c1c = c1s_ref[pl.ds(k0, size)]
+        ptr = None
+        if emit:
+            if canonical:
+                second, third = ((f_v, e) if affine else (up_v, left_v))
+                hp = jnp.where(cur == diag_v, d_s,
+                               jnp.where(cur == second, u_s,
+                                         jnp.where(cur == third, l_s, s_s)))
+                if local:
+                    hp = jnp.where(cur == 0, s_s, hp)
             else:
-                ref_chunk = ref_win_ref[pl.ds(k0, size)]
+                second, third = ((e, f_v) if affine else (left_v, up_v))
+                valid = vfn(read_col[:, None]) & vfn(ref_band)
+                hp = jnp.where((cur == diag_v) & valid, d_s,
+                               jnp.where(cur == second, l_s,
+                                         jnp.where(cur == third, u_s, s_s)))
             if affine:
-                f_old = fstate_out_ref[pl.ds(k0, size)]
-                f_store = []
-            store_vals = []
-            for u in range(size):
-                cctx = ((c0c[u], c1c[u]) if use_cstream
-                        else col_prep(ref_chunk[u]))
-                up = old[u]
-                f_up = f_old[u] if affine else None
-                new_lefts, new_diags, new_evals = [], [], []
-                for r in range(R):
-                    sub = sub_of(rctxs[r], cctx)
-                    if affine:
-                        f_val = jnp.maximum(
-                            jnp.maximum(up + open_f, f_up) + gap_ref, neg_inf)
-                        e_val = jnp.maximum(
-                            jnp.maximum(lefts[r] + open_r, evals[r]) + gap_read,
-                            neg_inf)
-                        cur = jnp.maximum(jnp.maximum(diags[r] + sub, f_val),
-                                          e_val)
-                        new_evals.append(e_val)
-                    else:
-                        cur = jnp.maximum(
-                            jnp.maximum(diags[r] + sub, up + gap_ref),
-                            lefts[r] + gap_read)
-                    # Scalar band predicate (bounds ride scalar prefetch).
-                    cidx = k0 + u
-                    ib = (cidx >= lows[r]) & (cidx < lows[r] + band)
-                    if local:
-                        # the zero-clamp subsumes the NEG clamp; out-of-band
-                        # cells are exact -inf and can never win the best.
-                        cur = jnp.where(ib, jnp.maximum(cur, 0), neg_inf)
-                        best = jnp.maximum(best, cur)
-                    else:
-                        cur = jnp.where(ib, jnp.maximum(cur, neg_inf),
-                                        neg_inf)
-                        lc_best = jnp.where(
-                            cidx == w_lastcol,
-                            jnp.maximum(lc_best, cur), lc_best)
-                    if affine:
-                        # E/F NEG clamps pin them outside the band; no
-                        # explicit F band mask needed (_banded_align_kernel).
-                        f_up = f_val
-                    new_diags.append(up)
-                    new_lefts.append(cur)
-                    up = cur
-                lefts, diags = new_lefts, new_diags
-                if affine:
-                    evals = new_evals
-                    f_store.append(f_up)     # row R-1's F value
-                store_vals.append(up)        # row R-1's H value
-            state_out_ref[pl.ds(k0, size)] = jnp.stack(store_vals)
-            if affine:
-                fstate_out_ref[pl.ds(k0, size)] = jnp.stack(f_store)
-            return lefts, diags, evals, best, lc_best
+                e_prev = jnp.concatenate([neg_col, e[:, :-1]], axis=1)
+                e_ext = (e == e_prev + gap_read).astype(jnp.uint8)
+                f_ext = (f_v == f_up + gap_ref).astype(jnp.uint8)
+                hp = hp | (e_ext << 2) | (f_ext << 3)
+            ptr = hp
 
-        init = ([h_bound] * R, diag0s, [neg_inf] * R,
-                best_out_ref[0], best_out_ref[1])
-        carry = init
-        if win // run:
-            carry = jax.lax.fori_loop(
-                0, win // run, lambda c, cr: run_chunk(c * run, cr, run),
-                carry)
-        if win % run:
-            carry = run_chunk((win // run) * run, carry, win % run)
-        _, _, _, best, lc_best = carry
-        best_out_ref[0] = best
-        if not local:
-            best_out_ref[1] = lc_best
-        return 0
+        row_max = jnp.max(cur, axis=1)
+        if local:
+            row_arg = jnp.argmax(cur, axis=1).astype(jnp.int32)
+            upd = row_max > best
+            best = jnp.where(upd, row_max, best)
+            best_i = jnp.where(upd, i, best_i)
+            best_j = jnp.where(upd, o + row_arg, best_j)
+        elif emit:
+            keep = jnp.where((mrp == i)[:, None], cur, keep)
+        else:
+            # NW overlap: the last column n (band cell w-1 when the band
+            # touches it) of every row, and the final row below.
+            best = jnp.where(o + w == refs.shape[1],
+                             jnp.maximum(best, cur[:, w - 1]), best)
+        f_next = f_v if affine else f_prev
+        out = (cur, f_next, o, best, best_i, best_j, keep)
+        return out, (ptr if emit else None)
 
-    jax.lax.fori_loop(0, tile // R, group_body, 0)
+    zeros_b = jnp.zeros((b,), jnp.int32)
+    init = (
+        jnp.zeros((b, w), jnp.int32),
+        jnp.full((b, w), neg, jnp.int32),
+        offsets[0],
+        zeros_b if local else jnp.full((b,), neg, jnp.int32),
+        zeros_b, zeros_b,
+        jnp.full((b, w), neg, jnp.int32),
+    )
+    xs = (jnp.arange(m, dtype=jnp.int32), offsets, reads.T)
+    return jax.lax.scan(body, init, xs)
+
+
+@functools.partial(jax.jit,
+                   static_argnames=("params", "algorithm", "band", "d_max"))
+def banded_score_device(reads, refs, offsets, params: AlignmentParameters,
+                        algorithm: Algorithm, band: int, d_max: int):
+    """(B, m), (B, n) codes + (m,) band offsets -> (B,) int32 scores."""
+    local = Algorithm(algorithm) == Algorithm.SMITH_WATERMAN
+    carry, _ = _band_rows(reads, refs, offsets, params, band, d_max, local,
+                          canonical=True, emit=False)
+    last, best = carry[0], carry[3]
+    if local:
+        return best
+    return jnp.maximum(jnp.maximum(best, jnp.max(last, axis=1)), 0)
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("params", "algorithm", "band", "tile", "d_max", "interpret"),
-)
-def _banded_score_blocks(reads_b, refs_b, offsets, params, algorithm,
-                         band: int, tile: int, d_max: int,
-                         interpret: bool = False):
-    """reads_b (G, m_pad, 8, 128); refs_b (G, n, 8, 128); offsets (m_pad,).
-
-    ``d_max`` is the true max per-row offset step (static, from the offsets).
-    """
-    g, m_pad = reads_b.shape[0], reads_b.shape[1]
-    n = refs_b.shape[1]
+    static_argnames=("params", "algorithm", "band", "d_max", "canonical"))
+def banded_align_device(reads, refs, offsets, mrp, max_ref_pos,
+                        params: AlignmentParameters, algorithm: Algorithm,
+                        band: int, d_max: int, canonical: bool = True):
+    """Band pointer fill: returns (ptr (B, m, W) uint8 band-relative codes,
+    start_read (B,), start_ref (B,), score (B,)) — the end-cell rules of
+    ``banded_align_oracle`` (-1/-1/0 for an empty NW alignment)."""
     local = Algorithm(algorithm) == Algorithm.SMITH_WATERMAN
-    shift_cap = tile * d_max      # max inter-tile window advance
-    win = band + shift_cap
-    n_tiles = m_pad // tile
-    state_rows = win + shift_cap  # -inf tail keeps the re-base slice in bounds
+    carry, ptr = _band_rows(reads, refs, offsets, params, band, d_max, local,
+                            canonical, emit=True, mrp=mrp)
+    ptr = jnp.transpose(ptr, (1, 0, 2))
+    if local:
+        return ptr, carry[4], carry[5], carry[3]
+    keep = carry[6]
+    o = offsets[jnp.maximum(mrp, 0)]
+    limit = max_ref_pos + 1 - o          # band cells at valid ref positions
+    k = jnp.arange(band, dtype=jnp.int32)[None, :]
+    vals = jnp.where(k < limit[:, None], keep, jnp.iinfo(jnp.int32).min)
+    arg = jnp.argmax(vals, axis=1).astype(jnp.int32)
+    empty = (mrp < 0) | (limit <= 0)
+    start_r = jnp.where(empty, -1, mrp)
+    start_f = jnp.where(empty, -1, o + arg)
+    score = jnp.where(empty, 0,
+                      jnp.take_along_axis(vals, arg[:, None], axis=1)[:, 0])
+    return ptr, start_r, start_f, score
 
-    # Pad ref blocks so any window slice is in-bounds; pad codes are 0
-    # (invalid, sub = 0) and band cells beyond n never feed the outputs.
-    refs_pad = jnp.pad(refs_b, ((0, 0), (0, win), (0, 0), (0, 0)))
-    win_starts = offsets[::tile]  # (n_tiles,)
 
-    kernel = functools.partial(
-        _banded_tile_kernel, tile=tile, band=band, win=win,
-        shift_cap=shift_cap, n=n, run=8 if interpret else 64,
-        params=params, local=local,
-    )
-    fstate_rows = state_rows if params.affine else 1
-    use_cstream = params.matrix is None
-    call = pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=3,
-            grid=(),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.VMEM),  # reads tile
-                pl.BlockSpec(memory_space=pltpu.VMEM),  # ref window
-                pl.BlockSpec(memory_space=pltpu.VMEM),  # state in
-                pl.BlockSpec(memory_space=pltpu.VMEM),  # best in
-                pl.BlockSpec(memory_space=pltpu.VMEM),  # f state in
-            ],
-            out_specs=(
-                pl.BlockSpec(memory_space=pltpu.VMEM),  # state out
-                pl.BlockSpec(memory_space=pltpu.VMEM),  # best out
-                pl.BlockSpec(memory_space=pltpu.VMEM),  # f state out
-            ),
-            scratch_shapes=[
-                pltpu.VMEM((win, BLOCK_SUBLANES, BLOCK_LANES), jnp.int32),
-                # column-context streams (placeholders in matrix mode)
-                pltpu.VMEM((win if use_cstream else 1,
-                            BLOCK_SUBLANES, BLOCK_LANES), jnp.int32),
-                pltpu.VMEM((win if use_cstream else 1,
-                            BLOCK_SUBLANES, BLOCK_LANES), jnp.int32),
-            ],
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((state_rows, BLOCK_SUBLANES, BLOCK_LANES), jnp.int32),
-            jax.ShapeDtypeStruct((2, BLOCK_SUBLANES, BLOCK_LANES), jnp.int32),
-            jax.ShapeDtypeStruct((fstate_rows, BLOCK_SUBLANES, BLOCK_LANES), jnp.int32),
-        ),
-        input_output_aliases={5: 0, 6: 1, 7: 2},  # donate state/best/fstate
-        interpret=interpret,
-    )
-
-    def run_block(rb, fb):
-        # Row 0 boundary: H[0][j] = 0 for every column (free leading gaps) —
-        # the initial window state is all zeros; the -inf tail never moves.
-        state_init = jnp.concatenate([
-            jnp.zeros((win, BLOCK_SUBLANES, BLOCK_LANES), jnp.int32),
-            jnp.full((shift_cap, BLOCK_SUBLANES, BLOCK_LANES), NEG_INF_I32, jnp.int32),
-        ])
-        best_init = jnp.stack([
-            jnp.zeros((BLOCK_SUBLANES, BLOCK_LANES), jnp.int32) if local
-            else jnp.full((BLOCK_SUBLANES, BLOCK_LANES), NEG_INF_I32, jnp.int32),
-            jnp.full((BLOCK_SUBLANES, BLOCK_LANES), NEG_INF_I32, jnp.int32),
-        ])
-        fstate_init = jnp.full(
-            (fstate_rows, BLOCK_SUBLANES, BLOCK_LANES), NEG_INF_I32, jnp.int32)
-
-        def tile_step(carry, t):
-            state, best, fstate = carry
-            reads_tile = jax.lax.dynamic_slice(
-                rb, (t * tile, 0, 0), (tile, BLOCK_SUBLANES, BLOCK_LANES))
-            ws = win_starts[t]
-            ref_win = jax.lax.dynamic_slice(
-                fb, (ws, 0, 0), (win, BLOCK_SUBLANES, BLOCK_LANES))
-            offs_tile = jax.lax.dynamic_slice(offsets, (t * tile,), (tile,))
-            prev_ws = jnp.where(t == 0, ws, win_starts[jnp.maximum(t - 1, 0)])
-            state, best, fstate = call(
-                offs_tile, ws[None], prev_ws[None], reads_tile, ref_win,
-                state, best, fstate,
-            )
-            return (state, best, fstate), None
-
-        (state, best, _), _ = jax.lax.scan(
-            tile_step, (state_init, best_init, fstate_init),
-            jnp.arange(n_tiles))
-        if local:
-            return best[0]
-        final_row = jnp.max(state[:win], axis=0)
-        out = jnp.maximum(best[1], final_row)
-        return jnp.maximum(out, 0)
-
-    return jax.lax.map(lambda args: run_block(*args), (reads_b, refs_pad))
+def _band_setup(m: int, n: int, band: int):
+    band = min(band, n)
+    offsets = band_offsets(m, m, n, band)
+    d_max = max(int(np.diff(offsets).max(initial=1)), 1)
+    return band, offsets, d_max
 
 
 def banded_score_batch(
@@ -651,559 +512,22 @@ def banded_score_batch(
     params: AlignmentParameters,
     algorithm: Algorithm,
     band: int = 512,
-    tile: int = 256,
-    interpret: bool | None = None,
 ) -> np.ndarray:
-    """Banded batch scoring: (B, m) x (B, n) -> (B,) int32.
-
-    ``band`` is rounded down to the ref length; rows pad to a tile multiple
-    (invalid padding rows cannot change the score — diagonal sub-0
-    propagation only replays existing final-row values).
-    """
-    if interpret is None:
-        interpret = not _is_tpu()
+    """Banded batch scoring: (B, m) x (B, n) -> (B,) int32 (``band`` is
+    clamped to the ref length)."""
     b, m = reads.shape
     n = refs.shape[1]
-    band = min(band, n)
-    tile = min(tile, max(8, m))
-    m_pad = -(-m // tile) * tile
-    g = max(1, -(-b // BLOCK_PAIRS))
-    b_pad = g * BLOCK_PAIRS
-
-    def pack(x, length, pad_len):
-        x = jnp.asarray(np.asarray(x)).astype(jnp.int32)
-        x = jnp.pad(x, ((0, b_pad - x.shape[0]), (0, pad_len - length)))
-        x = x.reshape(g, BLOCK_SUBLANES, BLOCK_LANES, pad_len)
-        return jnp.transpose(x, (0, 3, 1, 2))
-
-    offsets_np = band_offsets(m_pad, m, n, band)
-    d_max = int(np.diff(offsets_np).max(initial=1)) if m_pad > 1 else 1
-    d_max = max(d_max, 1)
-    out = _banded_score_blocks(
-        pack(reads, m, m_pad), pack(refs, n, n), jnp.asarray(offsets_np),
-        params, Algorithm(algorithm), band, tile, d_max, interpret,
-    )
-    return np.asarray(out.reshape(b_pad)[:b], dtype=np.int32)
+    if b == 0 or m == 0 or n == 0:
+        return np.zeros(b, dtype=np.int32)
+    band, offsets, d_max = _band_setup(m, n, band)
+    out = banded_score_device(jnp.asarray(reads), jnp.asarray(refs),
+                              jnp.asarray(offsets), params,
+                              Algorithm(algorithm), band, d_max)
+    return np.asarray(out, dtype=np.int32)
 
 
-# ---------------------------------------------------------------------------
-# Banded traceback (additive; score path above stays pointer-free)
-# ---------------------------------------------------------------------------
-#
-# Semantics (greenfield — the reference has no banding) are DEFINED by
-# ``banded_align_oracle`` above: canonical pointer flavor, free row-0/col-0
-# boundaries, SW row-major argmax end, NW last-valid-row end rule. The
-# kernel is the window-relative + R-row register-wavefront scheme proven in
-# the score kernel, extended with pointer emission: every inner-loop address
-# is affine in the loop index (data-dependent addressing stalls Mosaic's
-# pipeline, ~30us/row measured on the per-row-shift design this replaces).
-#
-# Pointers are packed 8 per int32 word at WINDOW-relative positions (2-bit
-# linear codes, 4-bit affine hptr|e_ext<<2|f_ext<<3), streamed to HBM one
-# row tile per grid step through Pallas's double-buffered output pipeline —
-# the TPU analogue of the reference OpenCL kernels spilling the pointer
-# matrix to __global memory (alignment_kernels.cl:10-12). The ref window for
-# each tile is DMA'd from HBM at the tile's (data-dependent) window start —
-# a scalar-prefetch-driven async copy, the one place dynamic addressing is
-# allowed because it runs once per tile.
-
-def _banded_align_kernel(offs_ref, ws_ref, reads_ref, mrp_ref, refs_hbm,
-                         ptr_ref, best_out_ref, keep_out_ref,
-                         state_ref, fstate_ref, refwin_ref, bounce_ref,
-                         best_s, keep_s, c0w_ref, c1w_ref, cvw_ref, sem, *,
-                         tile, band, win, shift_cap, wpg,
-                         n, n_tiles, params: AlignmentParameters, local: bool,
-                         canonical: bool = True):
-    """One (pair_block, row_tile) grid step emitting packed pointers.
-
-    Scalar prefetch: offs (m_pad,) per-row band starts; ws (n_tiles,) window
-    starts (= offs[t*tile]). Grid (G, n_tiles), t innermost; VMEM scratch
-    (window state, Gotoh F state, SW best registers, NW captured row)
-    persists across the t dimension and resets at t == 0.
-
-    r5 treatments shared with the dense align kernels: the substitution
-    column context (c0w/c1w, + cvw SSE validity) is computed ONCE per tile
-    over the whole ref window right after the window DMA lands; ``wpg``
-    packed pointer words (8 words = 64 columns compiled) run per fori
-    iteration with one window-state load/store per run; and move selection
-    is the packed value|priority max in a left-shifted domain with SCALAR
-    band predicates (band bounds ride scalar prefetch), replacing the r4
-    eq/select pointer chain and per-cell iota band masks.
-
-    Outputs: ptr (1, tile, win//8, 8, 128) int32 packed pointer rows;
-    best (1, 4, 8, 128) [SW: score, end_row, end_col]; keep (1, win, 8, 128)
-    [NW: the H row of each pair's last valid read row, window-relative to
-    the tile containing it] — both written at the final tile.
-    """
-    affine = params.affine
-    zero = jnp.zeros((BLOCK_SUBLANES, BLOCK_LANES), jnp.int32)
-    neg_inf = jnp.full((BLOCK_SUBLANES, BLOCK_LANES), NEG_INF_I32, jnp.int32)
-    pack = 8
-    n_chunks = win // pack
-    g = pl.program_id(0)
-    t = pl.program_id(1)
-    win_start = ws_ref[t]
-
-    # Ref window for this tile: HBM -> VMEM at the dynamic window start.
-    cp = pltpu.make_async_copy(
-        refs_hbm.at[g, pl.ds(win_start, win)], refwin_ref, sem)
-    cp.start()
-
-    @pl.when(t == 0)
-    def _():
-        # Row-0 boundary: H[0][j] = 0 everywhere (free leading gaps).
-        state_ref[pl.ds(0, win)] = jnp.zeros(
-            (win, BLOCK_SUBLANES, BLOCK_LANES), jnp.int32)
-        if shift_cap > 0:
-            state_ref[pl.ds(win, shift_cap)] = jnp.full(
-                (shift_cap, BLOCK_SUBLANES, BLOCK_LANES), NEG_INF_I32, jnp.int32)
-        best_s[...] = jnp.zeros((4, BLOCK_SUBLANES, BLOCK_LANES), jnp.int32)
-        if not local:
-            keep_s[...] = jnp.full(
-                (win, BLOCK_SUBLANES, BLOCK_LANES), NEG_INF_I32, jnp.int32)
-        if affine:
-            fstate_ref[...] = jnp.full(
-                (win + shift_cap, BLOCK_SUBLANES, BLOCK_LANES), NEG_INF_I32,
-                jnp.int32)
-
-    # Re-base the carried state to this tile's window (same scheme as the
-    # score kernel): capture the first row's diagonal boundary — the value
-    # at DP column win_start of the previous row — before it shifts away.
-    prev_ws = ws_ref[jnp.maximum(t - 1, 0)]
-    shift = win_start - prev_ws
-    pre_diag = jnp.where(
-        shift >= 1, state_ref[jnp.maximum(shift - 1, 0)],
-        jnp.where(win_start == 0, zero, neg_inf))
-
-    @pl.when((t > 0) & (shift > 0))
-    def _():
-        bounce_ref[...] = state_ref[pl.ds(shift, win)]
-        state_ref[pl.ds(0, win)] = bounce_ref[...]
-        state_ref[pl.ds(win, shift_cap)] = jnp.full(
-            (shift_cap, BLOCK_SUBLANES, BLOCK_LANES), NEG_INF_I32, jnp.int32)
-        if affine:
-            bounce_ref[...] = fstate_ref[pl.ds(shift, win)]
-            fstate_ref[pl.ds(0, win)] = bounce_ref[...]
-            fstate_ref[pl.ds(win, shift_cap)] = jnp.full(
-                (shift_cap, BLOCK_SUBLANES, BLOCK_LANES), NEG_INF_I32, jnp.int32)
-
-    cp.wait()
-
-    at_col0 = win_start == 0
-    h_bound = jnp.where(at_col0, zero, neg_inf)
-    R = 4 if tile % 4 == 0 else (2 if tile % 2 == 0 else 1)
-    d_code, u_code, l_code = jnp.int32(3), jnp.int32(1), jnp.int32(2)
-    mrp_vec = mrp_ref[0]
-
-    from versalignlib_tpu.alphabet import make_validity
-
-    # The DP runs in the dense align kernels' LEFT-SHIFTED domain: every
-    # in-band value carries ``value << 2`` with a 2-bit move PRIORITY in the
-    # low bits during selection, so ONE packed max replaces the 6-8 op
-    # eq/select pointer chain; NEG_INF_I32 itself is the shifted -inf
-    # sentinel (its low bits are 0, so priorities OR in cleanly, and the
-    # out-of-band re-mask every row stops drift). The oracle's per-cell NEG
-    # clamp becomes a START-priority candidate: it only wins when every real
-    # candidate is strictly below the sentinel, exactly the reference's
-    # fall-through-to-START rule. Band masking is a SCALAR predicate per
-    # (row, column) — the band bounds ride scalar prefetch, so the r4
-    # per-cell iota compares (~3 VPU ops/cell) are gone.
-    row_prep, col_prep, sub_of = make_sub_fn(params, shift=2)
-    vfn = make_validity(params.matrix)
-    use_cstream = params.matrix is None
-    ext_r = jnp.int32(params.score_gap_read << 2)
-    ext_f = jnp.int32(params.score_gap_ref << 2)
-    opn_r = jnp.int32(params.gap_open_read << 2)
-    opn_f = jnp.int32(params.gap_open_ref << 2)
-    # Out-of-band packed value: sentinel | the priority that maps to the
-    # stored code 0 (canonical SW remap sends prio 3 -> START; every other
-    # flavor's prio 0 IS/maps-to START).
-    oob_prio = 3 if (canonical and local) else 0
-    oob = jnp.int32(NEG_INF_I32 | oob_prio)
-    even = jnp.int32(0x55555555)
-    even4 = jnp.int32(0x11111111)
-    ef4 = jnp.int32(0xCCCCCCCC - (1 << 32))
-    lin_mask = jnp.int32((1 << (2 * pack)) - 1)  # 8 x 2-bit fields used
-
-    # Column-context streams over the landed ref window, once per TILE
-    # (amortized over the tile's row sweeps; elementwise over whole chunks).
-    if use_cstream:
-        fcw = min(128, win)
-        n_f = win // fcw
-
-        def fill_cctx(j0, size):
-            rc = refwin_ref[pl.ds(j0, size)]
-            fc2, fb = col_prep(rc)
-            c0w_ref[pl.ds(j0, size)] = fc2
-            c1w_ref[pl.ds(j0, size)] = fb
-            if not canonical:
-                cvw_ref[pl.ds(j0, size)] = jnp.where(vfn(rc), jnp.int32(-1),
-                                                     jnp.int32(0))
-
-        if n_f:
-            jax.lax.fori_loop(
-                0, n_f, lambda c, z: (fill_cctx(c * fcw, fcw), z)[1], 0)
-        if win % fcw:
-            fill_cctx(n_f * fcw, win % fcw)
-
-    at_col0 = win_start == 0
-    h_bound = jnp.where(at_col0, zero, neg_inf)
-    R = 4 if tile % 4 == 0 else (2 if tile % 2 == 0 else 1)
-    mrp_vec = mrp_ref[0]
-
-    def group_body(ig, carry):
-        best, bi, bj = carry
-        i0 = ig * R
-        rcs = [reads_ref[0, i0 + r] for r in range(R)]
-        rctxs = [row_prep(rcs[r]) for r in range(R)]
-        if not canonical:
-            # SSE flavor: DIAG priority 3 gated on both symbols being valid.
-            rv3s = [jnp.where(vfn(rc), jnp.int32(3), jnp.int32(0))
-                    for rc in rcs]
-        lows = [offs_ref[t * tile + i0 + r] - win_start for r in range(R)]
-        row_abs = [t * tile + i0 + r for r in range(R)]
-        diag0s = [jnp.where((ig == 0) & (r == 0), pre_diag, h_bound)
-                  for r in range(R)]
-        if local:
-            ris = [zero + row_abs[r] for r in range(R)]
-        else:
-            mrows = [mrp_vec == row_abs[r] for r in range(R)]
-
-        def run_body(k0, w0, carry, n_w):
-            # One word-run: ``n_w`` packed pointer words (statically
-            # unrolled), one window-state load/store for the whole run.
-            lefts, diags, evals, rbests, rargs = carry
-            total = n_w * pack
-            old = state_ref[pl.ds(k0, total)]
-            if use_cstream:
-                c0c = c0w_ref[pl.ds(k0, total)]
-                c1c = c1w_ref[pl.ds(k0, total)]
-                if not canonical:
-                    cvc = cvw_ref[pl.ds(k0, total)]
-            else:
-                ref_chunk = refwin_ref[pl.ds(k0, total)]
-            if affine:
-                f_old = fstate_ref[pl.ds(k0, total)]
-                f_store = []
-            if not local:
-                keep_old = keep_s[pl.ds(k0, total)]
-                keep_new = []
-            store_vals = []
-            col = 0
-            for wi in range(n_w):
-              words = [zero] * R
-              for u in range(pack):
-                up = old[col]
-                if use_cstream:
-                    cctx = (c0c[col], c1c[col])
-                    fvm = cvc[col] if not canonical else None
-                else:
-                    ref_col = ref_chunk[col]
-                    cctx = col_prep(ref_col)
-                    fvm = (jnp.where(vfn(ref_col), jnp.int32(-1),
-                                     jnp.int32(0))
-                           if not canonical else None)
-                f_up = f_old[col] if affine else None
-                keep_u = keep_old[col] if not local else None
-                new_lefts, new_diags, new_evals = [], [], []
-                for r in range(R):
-                    sub = sub_of(rctxs[r], cctx)       # value << 2
-                    diag_v = diags[r] + sub
-                    if affine:
-                        # Oracle clamps E/F at NEG each cell (band edges
-                        # feed -inf): SENT is the shifted clamp.
-                        e_raw = evals[r] + ext_r
-                        f_raw = f_up + ext_f
-                        f_val = jnp.maximum(
-                            jnp.maximum(up + opn_f, f_up) + ext_f, neg_inf)
-                        e_val = jnp.maximum(
-                            jnp.maximum(lefts[r] + opn_r, evals[r]) + ext_r,
-                            neg_inf)
-                        if canonical:
-                            if local:
-                                # DIAG 2 > UP(F) 1 > LEFT(E) 0; START = the
-                                # SW clamp constant 3 (zero-clamp + force).
-                                cur_p = jnp.maximum(
-                                    jnp.maximum(diag_v | 2, f_val | 1), e_val)
-                                cur_p = jnp.maximum(cur_p, 3)
-                            else:
-                                # DIAG 3 > UP(F) 2 > LEFT(E) 1 > START 0:
-                                # the sentinel candidate IS the NEG clamp.
-                                cur_p = jnp.maximum(
-                                    jnp.maximum(diag_v | 3, f_val | 2),
-                                    e_val | 1)
-                                cur_p = jnp.maximum(cur_p, neg_inf)
-                        else:
-                            # SSE: gated DIAG 3 > LEFT(E) 2 > UP(F) 1 ARE
-                            # the stored codes; SW clamp 0, NW the sentinel.
-                            cur_p = jnp.maximum(
-                                jnp.maximum(diag_v | (rv3s[r] & fvm),
-                                            e_val | 2), f_val | 1)
-                            cur_p = jnp.maximum(
-                                cur_p, zero if local else neg_inf)
-                    else:
-                        if canonical:
-                            if local:
-                                cur_p = jnp.maximum(
-                                    jnp.maximum(diag_v | 2,
-                                                (up + ext_f) | 1),
-                                    lefts[r] + ext_r)
-                                cur_p = jnp.maximum(cur_p, 3)
-                            else:
-                                cur_p = jnp.maximum(
-                                    jnp.maximum(diag_v | 3,
-                                                (up + ext_f) | 2),
-                                    (lefts[r] + ext_r) | 1)
-                                cur_p = jnp.maximum(cur_p, neg_inf)
-                        else:
-                            cur_p = jnp.maximum(
-                                jnp.maximum(diag_v | (rv3s[r] & fvm),
-                                            (lefts[r] + ext_r) | 2),
-                                (up + ext_f) | 1)
-                            cur_p = jnp.maximum(
-                                cur_p, zero if local else neg_inf)
-                    # Scalar band predicate: bounds are prefetch scalars.
-                    cidx = k0 + col
-                    ib = (cidx >= lows[r]) & (cidx < lows[r] + band)
-                    cur_p = jnp.where(ib, cur_p, oob)
-                    cur = cur_p & ~3               # H << 2, priority cleared
-                    if affine:
-                        code = (cur_p & 3) \
-                            | jnp.where(e_val == e_raw, jnp.int32(4),
-                                        jnp.int32(0)) \
-                            | jnp.where(f_val == f_raw, jnp.int32(8),
-                                        jnp.int32(0))
-                        # extend bits must read START (0) out of band
-                        code = jnp.where(ib, code, 0)
-                        words[r] = words[r] | (code << (4 * u))
-                        # No E/F band masking needed: the per-step NEG
-                        # clamps pin both at the sentinel wherever their
-                        # inputs are out-of-band (masked H = SENT), and
-                        # out-of-band F/E values are never read by an
-                        # in-band cell (bands advance monotonically).
-                        f_up = f_val
-                        new_evals.append(e_val)
-                    else:
-                        words[r] = words[r] | ((cur_p & 3) << (2 * u))
-                    if local:
-                        # Per-ROW argmax registers: strictly-greater keeps
-                        # the leftmost column; rows merge once per group in
-                        # ascending order (row-major-first end rule).
-                        upd = cur > rbests[r]
-                        rbests[r] = jnp.where(upd, cur, rbests[r])
-                        rargs[r] = jnp.where(upd, cidx + win_start, rargs[r])
-                    else:
-                        keep_u = jnp.where(mrows[r], cur, keep_u)
-                    new_diags.append(up)
-                    new_lefts.append(cur)
-                    up = cur
-                lefts, diags = new_lefts, new_diags
-                if affine:
-                    evals = new_evals
-                    f_store.append(f_up)     # row R-1's F value
-                store_vals.append(up)        # row R-1's H value
-                if not local:
-                    keep_new.append(keep_u)
-                col += 1
-              for r in range(R):
-                  w = words[r]
-                  if canonical:
-                      if affine:
-                          # hptr priority -> stored-code shuffle per 4-bit
-                          # field (ext bits untouched): SW (2/1/0 + START 3)
-                          # uses the dense shuffle; NW (3/2/1/0) a bit swap.
-                          if local:
-                              w = (w & ef4) | (((~w) & even4) << 1) \
-                                  | (((w >> 1) ^ w) & even4)
-                          else:
-                              w = (w & ef4) | ((w & even4) << 1) \
-                                  | ((w >> 1) & even4)
-                      else:
-                          if local:
-                              w = (((~w) & even) << 1) | (((w >> 1) ^ w) & even)
-                          else:
-                              w = ((w & even) << 1) | ((w >> 1) & even)
-                          # only 8 x 2-bit fields are populated; the remap
-                          # fills the unused high half — keep it START.
-                          w = w & lin_mask
-                  ptr_ref[0, i0 + r, w0 + wi] = w
-            state_ref[pl.ds(k0, total)] = jnp.stack(store_vals)
-            if affine:
-                fstate_ref[pl.ds(k0, total)] = jnp.stack(f_store)
-            if not local:
-                keep_s[pl.ds(k0, total)] = jnp.stack(keep_new)
-            return lefts, diags, evals, rbests, rargs
-
-        acc0 = [zero] * R if local else []
-        carry = ([h_bound] * R, diag0s, [neg_inf] * R, acc0, list(acc0))
-        n_runs = n_chunks // wpg
-        if n_runs:
-            carry = jax.lax.fori_loop(
-                0, n_runs,
-                lambda c, cr: run_body(c * (wpg * pack), c * wpg, cr, wpg),
-                carry)
-        if n_chunks % wpg:
-            carry = run_body(n_runs * wpg * pack, n_runs * wpg, carry,
-                             n_chunks % wpg)
-        _, _, _, rbests, rargs = carry
-        if local:
-            # Merge rows in ascending order: strict > keeps the earliest
-            # row on ties (row-major-first, as the oracle end rule).
-            for r in range(R):
-                upd = rbests[r] > best
-                best = jnp.where(upd, rbests[r], best)
-                bi = jnp.where(upd, ris[r], bi)
-                bj = jnp.where(upd, rargs[r], bj)
-        return best, bi, bj
-
-    init = (best_s[0], best_s[1], best_s[2])
-    best, bi, bj = jax.lax.fori_loop(0, tile // R, group_body, init)
-    if local:
-        best_s[0] = best
-        best_s[1] = bi
-        best_s[2] = bj
-
-    @pl.when(t == n_tiles - 1)
-    def _():
-        # leave the shifted domain: plane 0 is the SW best score
-        best_out_ref[0, 0] = best_s[0] >> 2
-        best_out_ref[0, 1] = best_s[1]
-        best_out_ref[0, 2] = best_s[2]
-        best_out_ref[0, 3] = best_s[3]
-        if not local:
-            keep_out_ref[0] = keep_s[...] >> 2
-
-
-def _banded_align_vmem(tile: int, win: int, shift_cap: int, keep_rows: int,
-                       affine: bool) -> int:
-    """VMEM plan of the banded align kernel (the ptr-tile double buffer
-    dominates: 2 * tile * win/8 blocks of 4KB)."""
-    state_rows = win + shift_cap
-    return 4 * BLOCK_PAIRS * (
-        2 * tile            # reads blocks (double-buffered)
-        + 2 * tile * (win // 8)  # ptr out blocks (double-buffered)
-        + 2 * (4 + keep_rows + 1)             # best/keep out + mrp in
-        + state_rows * (2 if affine else 1)   # state (+ fstate) scratch
-        + 2 * win           # refwin + bounce scratch
-        + keep_rows + 4     # keep_s + best_s scratch
-        + 3 * win           # column-context streams (c0/c1/cv)
-        + 8 * min(64, win)  # word-run load/store temporaries (wpg=8)
-    ) + 4 * 1024 * 1024
-
-
-def _clamp_align_tile(tile: int, m: int, n: int, band: int,
-                      affine: bool, local: bool) -> int:
-    """Shrink the row tile until the kernel's VMEM plan fits the device
-    (models may pass score-path tiles like 256, whose pointer double-buffer
-    alone exceeds VMEM)."""
-    from versalignlib_tpu.utils.capabilities import probe
-
-    budget = probe().vmem_bytes
-    if budget == 0:
-        return tile  # CPU / interpret: no VMEM constraint
-    while tile > 8:
-        m_pad = -(-m // tile) * tile
-        offs = band_offsets(m_pad, m, n, band)
-        d = max(int(np.diff(offs).max(initial=1)), 1) if m_pad > 1 else 1
-        shift_cap = tile * d
-        win = -(-(band + shift_cap) // 8) * 8
-        keep_rows = win if not local else 1
-        if _banded_align_vmem(tile, win, shift_cap, keep_rows, affine) <= budget:
-            break
-        tile //= 2
-    return tile
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("params", "algorithm", "band", "tile", "d_max",
-                     "canonical", "interpret"),
-)
-def _banded_align_blocks(reads_b, refs_b, offsets, win_starts, mrp_b, params,
-                         algorithm, band: int, tile: int, d_max: int,
-                         canonical: bool = True, interpret: bool = False):
-    """Banded pointer fill. reads_b (G, m_pad, 8, 128); refs_b (G, n, 8, 128);
-    offsets (m_pad,); win_starts (n_tiles,); mrp_b (G, 8, 128).
-
-    Returns (ptr (G, m_pad, win//8, 8, 128) packed words,
-             best (G, 4, 8, 128) SW end registers,
-             keep (G, win, 8, 128) NW captured last-valid rows).
-    """
-    g_blocks, m_pad = reads_b.shape[0], reads_b.shape[1]
-    n = refs_b.shape[1]
-    local = Algorithm(algorithm) == Algorithm.SMITH_WATERMAN
-    affine = params.affine
-    shift_cap = tile * d_max
-    win = -(-(band + shift_cap) // 8) * 8
-    wc = win // 8
-    n_tiles = m_pad // tile
-    refs_pad = jnp.pad(refs_b, ((0, 0), (0, win), (0, 0), (0, 0)))
-    keep_rows = win if not local else 1
-    use_cstream = params.matrix is None
-
-    wpg = 1 if interpret else 8
-    kernel = functools.partial(
-        _banded_align_kernel, tile=tile, band=band, win=win,
-        shift_cap=shift_cap, wpg=wpg, n=n, n_tiles=n_tiles, params=params,
-        local=local, canonical=canonical,
-    )
-    state_rows = win + shift_cap
-    vmem_bytes = _banded_align_vmem(tile, win, shift_cap, keep_rows, affine)
-    call = pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(g_blocks, n_tiles),
-            in_specs=[
-                pl.BlockSpec((1, tile, BLOCK_SUBLANES, BLOCK_LANES),
-                             lambda g, t, offs, ws: (g, t, 0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, BLOCK_SUBLANES, BLOCK_LANES),
-                             lambda g, t, offs, ws: (g, 0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pl.ANY),  # refs stay in HBM
-            ],
-            out_specs=(
-                pl.BlockSpec((1, tile, wc, BLOCK_SUBLANES, BLOCK_LANES),
-                             lambda g, t, offs, ws: (g, t, 0, 0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, 4, BLOCK_SUBLANES, BLOCK_LANES),
-                             lambda g, t, offs, ws: (g, 0, 0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, keep_rows, BLOCK_SUBLANES, BLOCK_LANES),
-                             lambda g, t, offs, ws: (g, 0, 0, 0),
-                             memory_space=pltpu.VMEM),
-            ),
-            scratch_shapes=[
-                pltpu.VMEM((state_rows, BLOCK_SUBLANES, BLOCK_LANES), jnp.int32),
-                pltpu.VMEM((state_rows if affine else 1,
-                            BLOCK_SUBLANES, BLOCK_LANES), jnp.int32),
-                pltpu.VMEM((win, BLOCK_SUBLANES, BLOCK_LANES), jnp.int32),
-                pltpu.VMEM((win, BLOCK_SUBLANES, BLOCK_LANES), jnp.int32),
-                pltpu.VMEM((4, BLOCK_SUBLANES, BLOCK_LANES), jnp.int32),
-                pltpu.VMEM((keep_rows, BLOCK_SUBLANES, BLOCK_LANES), jnp.int32),
-                # column-context streams (c0/c1/cv; placeholders when unused)
-                pltpu.VMEM((win if use_cstream else 1,
-                            BLOCK_SUBLANES, BLOCK_LANES), jnp.int32),
-                pltpu.VMEM((win if use_cstream else 1,
-                            BLOCK_SUBLANES, BLOCK_LANES), jnp.int32),
-                pltpu.VMEM((win if (use_cstream and not canonical) else 1,
-                            BLOCK_SUBLANES, BLOCK_LANES), jnp.int32),
-                pltpu.SemaphoreType.DMA(()),
-            ],
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct(
-                (g_blocks, m_pad, wc, BLOCK_SUBLANES, BLOCK_LANES), jnp.int32),
-            jax.ShapeDtypeStruct(
-                (g_blocks, 4, BLOCK_SUBLANES, BLOCK_LANES), jnp.int32),
-            jax.ShapeDtypeStruct(
-                (g_blocks, keep_rows, BLOCK_SUBLANES, BLOCK_LANES), jnp.int32),
-        ),
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=vmem_bytes),
-        interpret=interpret,
-    )
-    return call(offsets, win_starts, reads_b, mrp_b, refs_pad)
+#: pointer-plane bytes per device round of the banded align path
+BANDED_CHUNK_BYTES = 1 << 30
 
 
 def banded_align_batch(
@@ -1212,280 +536,93 @@ def banded_align_batch(
     params: AlignmentParameters,
     algorithm: Algorithm,
     band: int = 512,
-    tile: int = 64,
-    interpret: bool | None = None,
     raw: bool = False,
-    chunk_blocks: int | None = None,
+    chunk_pairs: int | None = None,
     tie=None,
-    device_walk: bool | None = None,
 ):
-    """Banded full alignment: Pallas pointer fill + host band walk.
+    """Banded full alignment: XLA band scan + host band walk.
 
-    Semantics: ``banded_align_oracle`` (both tie flavors; linear AND affine
-    gap models). The pointer stream is ``win//8`` int32 words per row per
-    pair, so batches are chunked into ``chunk_blocks`` 1024-pair blocks per
-    device round under a 64MB budget (default), pipelined one chunk ahead
-    of the host decode — the banded analogue of the dense path's
-    memory-driven batching.
-
-    ``device_walk`` walks the band ON DEVICE (ops/walk.py banded walks):
-    the window-relative pointer words never leave HBM and only per-row
-    records (4B/row/pair — ``win/2``x fewer link bytes, e.g. 72x at band
-    512) cross to the host for the shared branch-free replay. Output is
-    bit-identical to the host band walk (test-gated). Default: ON for
-    compiled TPU runs, OFF in interpret mode (same policy as the dense
-    pallas backend).
+    Semantics: ``banded_align_oracle`` (both tie flavors, linear and affine
+    gaps). The (B, m, W) uint8 pointer plane bounds the batch, so pairs go
+    to the device ``chunk_pairs`` at a time (default: about
+    ``BANDED_CHUNK_BYTES`` of plane per round), one chunk ahead of the host
+    decode.
     """
-    from versalignlib_tpu.types import TieBreak
+    from versalignlib_tpu.ops.traceback import last_valid_positions
+    from versalignlib_tpu.types import AlignmentBatch, TieBreak
 
-    if interpret is None:
-        interpret = not _is_tpu()
-    if device_walk is None:
-        device_walk = not interpret
     algorithm = Algorithm(algorithm)
-    local = algorithm == Algorithm.SMITH_WATERMAN
+    reads = np.asarray(reads)
+    refs = np.asarray(refs)
     b, m = reads.shape
     n = refs.shape[1]
-    if b == 0:
-        return []
     if m == 0 or n == 0:
         from versalignlib_tpu.ops import traceback as tb
 
         return [
-            tb.decode_one(np.zeros((1, 1), np.uint8), np.asarray(reads)[i],
-                          np.asarray(refs)[i], -1, -1, params, algorithm, 0)
+            tb.decode_one(np.zeros((1, 1), np.uint8), reads[i], refs[i],
+                          -1, -1, params, algorithm, 0)
             for i in range(b)
         ]
-    band = min(band, n)
-    tile = min(tile, max(8, m))
-    if not interpret:
-        tile = _clamp_align_tile(tile, m, n, band, params.affine, local)
-    m_pad = -(-m // tile) * tile
-
-    reads_np = np.asarray(reads)
-    refs_np = np.asarray(refs)
-    offsets_np = band_offsets(m_pad, m, n, band)
-    d_max = max(int(np.diff(offsets_np).max(initial=1)), 1) if m_pad > 1 else 1
-    win_starts_np = offsets_np[::tile].copy()
-    win = -(-(band + tile * d_max) // 8) * 8
-    wc = win // 8
-    wbase_np = np.repeat(win_starts_np, tile)[:m_pad].astype(np.int32)
-
-    # Flavored validity for the NW end-cell rule (canonical: code != 0).
-    from versalignlib_tpu.ops.pallas_align import _last_valid_pos, _pack_vec
+    band, offsets, d_max = _band_setup(m, n, band)
     tie_v = TieBreak.DIAG_UP_LEFT if tie is None else TieBreak(tie)
     canonical = tie_v == TieBreak.DIAG_UP_LEFT
-    mrp_all = _last_valid_pos(reads_np, tie_v, params.matrix)
-    max_ref_pos_all = _last_valid_pos(refs_np, tie_v, params.matrix)
+    mrp = last_valid_positions(reads, tie_v, params.matrix)
+    max_ref_pos = last_valid_positions(refs, tie_v, params.matrix)
+    if chunk_pairs is None:
+        chunk_pairs = max(1, BANDED_CHUNK_BYTES // (m * band))
+    offsets_dev = jnp.asarray(offsets)
 
-    if chunk_blocks is None:
-        # ~64MB of packed pointer words per device round — the dense path's
-        # link budget (the reference's memory-driven batching,
-        # OpenCLKernel.cpp:517-568) — in whole 1024-pair blocks. Long pairs
-        # always get at least one block (e.g. 16kbp x win 576 = 4.7MB/pair).
-        # Device walk: the link carries only (m,) records, so the budget is
-        # records-driven with the pointer stream capped at 512MB resident —
-        # the dispatch loop pipelines one chunk ahead, so up to TWO chunks'
-        # pointer buffers are live in HBM concurrently (~1GB peak + keep/
-        # hsel), comfortably inside a 16GB v5e.
-        bytes_per_block = m_pad * wc * 4 * BLOCK_PAIRS
-        if device_walk:
-            chunk_blocks = max(1, min(
-                (64 << 20) // (m * 4 * BLOCK_PAIRS),
-                (1 << 29) // bytes_per_block))
-        else:
-            chunk_blocks = max(1, (64 << 20) // bytes_per_block)
-    chunk_pairs = chunk_blocks * BLOCK_PAIRS
+    def dispatch(lo):
+        sl = slice(lo, lo + chunk_pairs)
+        return lo, banded_align_device(
+            jnp.asarray(reads[sl]), jnp.asarray(refs[sl]), offsets_dev,
+            jnp.asarray(mrp[sl]), jnp.asarray(max_ref_pos[sl]), params,
+            algorithm, band, d_max, canonical)
 
-    def pack_arr(x, length, pad_len, g):
-        x = jnp.asarray(x).astype(jnp.int32)
-        x = jnp.pad(
-            x, ((0, g * BLOCK_PAIRS - x.shape[0]), (0, pad_len - length)))
-        x = x.reshape(g, BLOCK_SUBLANES, BLOCK_LANES, pad_len)
-        return jnp.transpose(x, (0, 3, 1, 2))
-
-    def _dispatch(lo):
-        r_np = reads_np[lo : lo + chunk_pairs]
-        f_np = refs_np[lo : lo + chunk_pairs]
-        g = max(1, -(-r_np.shape[0] // BLOCK_PAIRS))
-        dev = _banded_align_blocks(
-            pack_arr(r_np, m, m_pad, g), pack_arr(f_np, n, n, g),
-            jnp.asarray(offsets_np), jnp.asarray(win_starts_np),
-            _pack_vec(mrp_all[lo : lo + chunk_pairs], g), params, algorithm,
-            band, tile, d_max, canonical, interpret,
-        )
-        if device_walk:
-            from versalignlib_tpu.ops.walk import (
-                walk_blocks_banded, walk_blocks_banded_affine)
-
-            walk_fn = (walk_blocks_banded_affine if params.affine
-                       else walk_blocks_banded)
-            dev = walk_fn(
-                dev[0], dev[1], dev[2],
-                _pack_vec(mrp_all[lo : lo + chunk_pairs], g),
-                _pack_vec(max_ref_pos_all[lo : lo + chunk_pairs], g),
-                jnp.asarray(offsets_np), jnp.asarray(wbase_np),
-                m=m, n=n, band=band, local=local,
-            )
-        return lo, r_np, f_np, g, dev
-
-    def _decode(lo, r_np, f_np, g, dev):
-        if device_walk:
-            from versalignlib_tpu.ops.pallas_align import _unpack_pairs
-            from versalignlib_tpu.ops.walk import replay_batch
-
-            records, start_r, start_f, scores = dev
-            bc = r_np.shape[0]
-            return replay_batch(
-                _unpack_pairs(records, g)[:bc],
-                r_np, f_np,
-                _unpack_pairs(start_r, g)[:bc],
-                _unpack_pairs(start_f, g)[:bc],
-                _unpack_pairs(scores, g)[:bc],
-                params, algorithm, raw=raw,
-            )
-        ptr, best, keep = dev
-        bc = r_np.shape[0]
-        mrp = mrp_all[lo : lo + bc]
-        max_ref_pos = max_ref_pos_all[lo : lo + bc]
-        # (G, m_pad, wc, 8, 128) -> (Bc, m_pad, wc) etc.
-        ptr = np.asarray(ptr).transpose(0, 3, 4, 1, 2).reshape(
-            g * BLOCK_PAIRS, m_pad, wc)[:bc]
-        best = np.asarray(best).transpose(0, 2, 3, 1).reshape(
-            g * BLOCK_PAIRS, 4)[:bc]
-        keep = np.asarray(keep).transpose(0, 2, 3, 1).reshape(
-            g * BLOCK_PAIRS, -1)[:bc]
-
-        starts_r = np.zeros(bc, dtype=np.int32)
-        starts_f = np.zeros(bc, dtype=np.int32)
-        scores = np.zeros(bc, dtype=np.int32)
-        if local:
-            scores[:] = best[:, 0]
-            starts_r[:] = best[:, 1]
-            starts_f[:] = best[:, 2]
-        else:
-            for k in range(bc):
-                rp = int(mrp[k])
-                if rp < 0:
-                    starts_r[k] = starts_f[k] = -1
-                    continue
-                o = int(offsets_np[rp])
-                hi = min(o + band, n, int(max_ref_pos[k]) + 1)
-                if hi <= o:
-                    starts_r[k] = starts_f[k] = -1
-                    continue
-                wb = int(wbase_np[rp])
-                vals = keep[k, o - wb : o - wb + (hi - o)]
-                arg = int(np.argmax(vals))
-                starts_r[k] = rp
-                starts_f[k] = o + arg
-                scores[k] = int(vals[arg])
-
+    def decode(lo, dev):
+        sl = slice(lo, lo + chunk_pairs)
+        ptr, start_r, start_f, score = (np.asarray(x) for x in dev)
         try:
             from versalignlib_tpu.native import decode_banded_native
 
             return decode_banded_native(
-                ptr, band, win, offsets_np, wbase_np, r_np, f_np,
-                starts_r, starts_f, params, algorithm, scores, raw=raw,
-            )
+                ptr, band, offsets, reads[sl], refs[sl], start_r, start_f,
+                params, algorithm, score, raw=raw)
         except ImportError:
             if raw:
                 raise  # raw mode requires the native decoder
             return [
-                _banded_decode_one(
-                    ptr[k], r_np[k], f_np[k], offsets_np, wbase_np, band,
-                    int(starts_r[k]), int(starts_f[k]), int(scores[k]),
-                    params)
-                for k in range(bc)
+                _banded_decode_one(ptr[k], reads[sl][k], refs[sl][k], offsets,
+                                   band, int(start_r[k]), int(start_f[k]),
+                                   int(score[k]), params)
+                for k in range(ptr.shape[0])
             ]
 
-    # Device dispatch pipelined one chunk ahead of the host decode, as in
-    # the dense path (pallas_align_batch).
-    starts_list = list(range(0, b, chunk_pairs))
-    pending: list = []
-    results = []
-    for idx, lo in enumerate(starts_list):
-        pending.append(_dispatch(lo))
-        if len(pending) < 2 and idx + 1 < len(starts_list):
-            continue
-        results.append(_decode(*pending.pop(0)))
-    for item in pending:
-        results.append(_decode(*item))
+    results, pending = [], None
+    for lo in range(0, b, chunk_pairs):
+        nxt = dispatch(lo)
+        if pending is not None:
+            results.append(decode(*pending))
+        pending = nxt
+    if pending is not None:
+        results.append(decode(*pending))
     if raw:
-        from versalignlib_tpu.types import AlignmentBatch
-
         return AlignmentBatch.concat(results)
     return [a for chunk in results for a in chunk]
 
 
-def _banded_decode_one(ptr_words, read, ref, offsets, wbase, band,
-                       start_i, start_j, score, params):
-    """Host walk over window-relative packed pointer words (python fallback;
-    the native decoder implements the same walk in C++). Linear codes are
-    2-bit, affine 4-bit (hptr | e_ext<<2 | f_ext<<3), 8 per int32 word."""
-    from versalignlib_tpu.ops.traceback import _text_from_codes
-    from versalignlib_tpu.types import Alignment, Trace, cigar_from_gapped
-
-    affine = params.affine
-    bits = 4 if affine else 2
-    m, n = read.shape[0], ref.shape[0]
-    m_rows = ptr_words.shape[0]
-    read_text = _text_from_codes(read)
-    ref_text = _text_from_codes(ref)
-    rp, fp = start_i, start_j
-    rg, fg = [], []
-    state = 0  # 0=H, 1=F(up), 2=E(left)
-    steps = 0
-    while steps <= m + n and 0 <= rp < m_rows and fp >= 0:
-        kb = fp - int(offsets[rp])
-        if kb < 0 or kb >= band:
-            break  # walked off the band: boundary
-        kw = fp - int(wbase[rp])
-        word = int(ptr_words[rp, kw // 8])
-        code = (word >> (bits * (kw % 8))) & ((1 << bits) - 1)
-        hp = code & 3
-        if not affine:
-            if hp == Trace.START:
-                break
-            if hp == Trace.UP:
-                rg.append(read_text[rp]); fg.append("-"); rp -= 1
-            elif hp == Trace.LEFT:
-                rg.append("-"); fg.append(ref_text[fp]); fp -= 1
-            else:
-                rg.append(read_text[rp]); fg.append(ref_text[fp])
-                rp -= 1; fp -= 1
-            steps += 1
-            continue
-        if state == 0:
-            if hp == Trace.START:
-                break
-            if hp == Trace.DIAG:
-                rg.append(read_text[rp]); fg.append(ref_text[fp])
-                rp -= 1; fp -= 1
-                steps += 1
-            elif hp == Trace.UP:
-                state = 1
-            else:
-                state = 2
-        elif state == 1:
-            rg.append(read_text[rp]); fg.append("-")
-            rp -= 1
-            if not ((code >> 3) & 1):
-                state = 0
-            steps += 1
-        else:
-            rg.append("-"); fg.append(ref_text[fp])
-            fp -= 1
-            if not ((code >> 2) & 1):
-                state = 0
-            steps += 1
-    read_g = "".join(reversed(rg))
-    ref_g = "".join(reversed(fg))
-    aln_length = m + n
-    return Alignment(
-        read=read_g, ref=ref_g, score=int(score),
-        cigar=cigar_from_gapped(read_g, ref_g),
-        read_start=rp + 1, read_end=start_i + 1,
-        ref_start=fp + 1, ref_end=start_j + 1,
-        buffer_start=aln_length - 1 - len(rg), buffer_end=aln_length - 1,
-    )
+def _banded_decode_one(ptr, read, ref, offsets, band, start_i, start_j,
+                       score, params):
+    """Host walk over one pair's (m, W) band-relative pointer plane (the
+    Python fallback; the native decoder implements the same walk in C++).
+    Linear codes are 2-bit, affine 4-bit (hptr | e_ext<<2 | f_ext<<3)."""
+    m = read.shape[0]
+    rows = np.arange(m)[:, None]
+    cols = offsets[:m, None] + np.arange(band)[None, :]
+    in_band = np.zeros((m, ref.shape[0]), dtype=bool)
+    in_band[rows, cols] = True
+    dense = np.zeros((m + 1, ref.shape[0] + 1), dtype=np.uint8)
+    dense[rows + 1, cols + 1] = ptr
+    return _banded_oracle_walk(dense, in_band, read, ref, start_i, start_j,
+                               score, params.affine)

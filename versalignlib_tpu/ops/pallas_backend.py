@@ -1,21 +1,23 @@
-"""Dispatcher backend wiring the Pallas TPU kernels.
+"""Dispatcher backend for the hand-written GPU kernels.
 
-Score path: Pallas interpair kernel (pallas_score.py). Align path: Pallas
-pointer-matrix kernel when available, else the XLA scan kernel — both decode
-on host (ops/traceback.py), mirroring the reference split between device DP
-fill and scalar backtrack (SSEKernel.cpp:785-860).
+Score path: the Pallas/Triton dense score kernel (ops/triton_score.py).
+Align path: the XLA pointer fill plus the host decode (ops/xla.py
+``align_pairs``), mirroring the reference split between device DP fill and
+scalar backtrack (SSEKernel.cpp:785-860).
 
-Availability and size limits come from :mod:`versalignlib_tpu.utils.capabilities`
-— the TPU-era analogue of the reference's CPUID gate on the AVX backend
-(/root/reference/src/util/versalignUtil.cpp:78-181, main.cpp:80-83): the
-compiled kernels require a TPU, and dense pairs whose VMEM plan exceeds the
-device are rejected with a pointer to the banded path instead of an opaque
-Mosaic OOM.
+The kernel compiles only for CUDA devices
+(:attr:`~versalignlib_tpu.utils.capabilities.DeviceCapabilities.gpu_kernels`),
+the analogue of the reference's CPUID gate on the AVX backend
+(/root/reference/src/util/versalignUtil.cpp:78-181, main.cpp:80-83).
+``interpret=True`` runs it in the Pallas interpreter (tests only).
 """
 
 from __future__ import annotations
 
-from versalignlib_tpu.ops.pallas_score import PallasScorer
+import jax.numpy as jnp
+import numpy as np
+
+from versalignlib_tpu.ops import triton_score, xla
 from versalignlib_tpu.types import Algorithm
 from versalignlib_tpu.utils.capabilities import probe
 
@@ -23,68 +25,19 @@ from versalignlib_tpu.utils.capabilities import probe
 class PallasBackend:
     name = "pallas"
 
-    def __init__(self, interpret: bool | None = None):
-        self._scorer = PallasScorer(interpret=interpret)
-        self._xla = None
+    def __init__(self, interpret: bool = False):
+        self.interpret = interpret
 
     def is_available(self) -> bool:
-        # "auto" should only pick this backend where it compiles (TPU); the
-        # interpreter path still works when selected explicitly (tests), but
-        # is orders of magnitude slower than the XLA backend on CPU.
-        return probe().supports_pallas_compiled or not self._scorer.interpret
-
-    def _check_dense_fits(self, reads, refs, params, mode: str) -> None:
-        if self._scorer.interpret:
-            return  # interpreter mode has no VMEM plan
-        caps = probe()
-        m, n = reads.shape[1], refs.shape[1]
-        if not caps.dense_fits(m, n, params.affine, mode=mode):
-            raise ValueError(
-                f"dense {m}x{n} pair exceeds the {caps.device_kind} VMEM "
-                f"budget ({caps.vmem_bytes >> 20}MB); use the banded path "
-                "(ops/banded.banded_score_batch / banded_align_batch or "
-                "models.banded_smith_waterman) for long pairs"
-            )
+        return self.interpret or probe().gpu_kernels
 
     def score_alignments(self, algorithm, reads, refs, params):
-        self._check_dense_fits(reads, refs, params, "score")
-        return self._scorer(reads, refs, params, Algorithm(algorithm))
+        out = triton_score.score_batch_triton(
+            jnp.asarray(reads), jnp.asarray(refs), params,
+            Algorithm(algorithm), self.interpret)
+        return np.asarray(out, dtype=np.int32)
 
     def compute_alignments(self, algorithm, reads, refs, params, tie,
-                           device_walk: bool | None = None,
                            raw: bool = False, gapped: bool = True):
-        """``device_walk``: walk the pointer matrix on device (linear AND
-        affine) and ship per-row records instead of the packed pointer
-        stream — see ops/walk.py (bit-identical, 5-15x e2e on narrow
-        links, larger device rounds). Default (None): ON for compiled TPU
-        runs, OFF in interpreter mode (CPU tests host-decode directly).
-
-        ``raw=True``: return the AlignmentBatch column store (native
-        decoder required) — zero per-pair Python objects."""
-        if device_walk is None:
-            device_walk = not self._scorer.interpret
-        self._check_dense_fits(reads, refs, params, "align")
-        if params.affine:
-            from versalignlib_tpu.ops.pallas_align import pallas_align_affine_batch
-
-            return pallas_align_affine_batch(
-                reads, refs, params, Algorithm(algorithm), tie,
-                interpret=self._scorer.interpret, device_walk=device_walk,
-                raw=raw, gapped=gapped,
-            )
-        try:
-            from versalignlib_tpu.ops.pallas_align import pallas_align_batch
-
-            return pallas_align_batch(
-                reads, refs, params, Algorithm(algorithm), tie,
-                interpret=self._scorer.interpret, device_walk=device_walk,
-                raw=raw, gapped=gapped,
-            )
-        except ImportError:
-            if raw:
-                raise
-            if self._xla is None:
-                from versalignlib_tpu.ops.xla import XLABackend
-
-                self._xla = XLABackend()
-            return self._xla.compute_alignments(algorithm, reads, refs, params, tie)
+        return xla.align_pairs(reads, refs, params, algorithm, tie, raw=raw,
+                               gapped=gapped)

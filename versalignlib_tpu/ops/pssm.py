@@ -15,14 +15,10 @@ synthetic read ``[1..m]`` scored through a rectangular (m+1, S) matrix.
 The oracle is therefore the established numpy fills with a precomputed
 substitution plane (oracle._fill_matrix / gotoh._fill_affine ``sub=``).
 
-TPU-first design: the profile rides the one-vs-many search kernel
-(ops/pallas_search.py) as the SMEM query side — each profile row's S
-scores are bit-packed into ``W = ceil(S / fields_per_word)`` int32 words of
-biased fields (the same field scheme make_sub_fn uses for constant
-matrices, but here the tables are RUNTIME data). A cell pays W scalar-
-broadcast selects + one lane-wise variable-shift extract, the pool side
-keeps 1024 candidates per (8, 128) register tile, and scores stream out
-with no cross-product materialization.
+Device path: the dense XLA score scan (ops/xla.py ``profile_scores``) with
+the profile as the row side — each row's substitution scores are the
+profile row gathered at the pool codes — and the SW argmax end cell folded
+on the device for hit coordinates.
 
 Score conventions: ``P[i, 0]`` must be 0 (code 0 is the padding sentinel,
 pad scores 0 exactly like the reference's '\\0' fill-up); codes outside
@@ -40,15 +36,6 @@ from versalignlib_tpu.params import AlignmentParameters
 from versalignlib_tpu.types import Algorithm
 
 
-class PssmMeta(NamedTuple):
-    """Static (hashable) packing descriptor for a bit-packed profile."""
-
-    n_symbols: int    # S: table width (codes >= S score 0)
-    words: int        # W: int32 words per profile row
-    field_bits: int   # 4 or 8
-    bias: int         # stored field = score + bias (fields non-negative)
-
-
 def validate_pssm(P) -> np.ndarray:
     P = np.asarray(P, dtype=np.int32)
     if P.ndim != 2 or P.shape[1] < 2:
@@ -56,90 +43,6 @@ def validate_pssm(P) -> np.ndarray:
     if np.any(P[:, 0] != 0):
         raise ValueError("PSSM column 0 must be zero (code 0 is padding)")
     return P
-
-
-def pack_pssms(Ps) -> tuple[np.ndarray, PssmMeta]:
-    """Jointly pack K equal-shape profiles -> ((K, m, W) words, shared
-    PssmMeta) for one multi-profile kernel dispatch (the search kernel's
-    query axis streams profiles through SMEM)."""
-    Ps = [validate_pssm(P) for P in Ps]
-    if len({P.shape for P in Ps}) != 1:
-        raise ValueError("multi-profile packing requires equal (m, S) shapes")
-    stack = np.stack(Ps)
-    lo = int(min(0, stack.min()))
-    hi = int(max(0, stack.max()))
-    packed = [pack_pssm(P, lo=lo, hi=hi) for P in Ps]
-    return np.stack([w for w, _ in packed]), packed[0][1]
-
-
-def pack_pssm(P, lo: int | None = None,
-              hi: int | None = None) -> tuple[np.ndarray, PssmMeta]:
-    """(m, S) int score table -> ((m, W) int32 packed words, PssmMeta).
-
-    Field width is the narrowest power-of-2 the entry SPAN allows (4 bits
-    for span <= 15, 8 for span <= 255); wider tables are rejected — rescale
-    the profile (PSSM log-odds at sensible scales fit 8 bits with room).
-    ``lo``/``hi`` widen the assumed entry range (joint multi-profile packs).
-    """
-    P = validate_pssm(P)
-    m, s = P.shape
-    lo = int(min(0, P.min())) if lo is None else lo
-    hi = int(max(0, P.max())) if hi is None else hi
-    span = hi - lo
-    if span <= 15:
-        fw = 4
-    elif span <= 255:
-        fw = 8
-    else:
-        raise ValueError(
-            f"PSSM entry span {span} exceeds 255; rescale the profile")
-    bias = -lo
-    fpw = 32 // fw
-    fmask = (1 << fw) - 1
-    w_cnt = -(-s // fpw)
-    words = np.zeros((m, w_cnt), dtype=np.int64)
-    for w in range(w_cnt):
-        for k in range(fpw):
-            sym = w * fpw + k
-            field = (P[:, sym].astype(np.int64) + bias) if sym < s else bias
-            words[:, w] |= (field & fmask) << (fw * k)
-    words = np.where(words >= (1 << 31), words - (1 << 32), words)
-    return words.astype(np.int32), PssmMeta(s, w_cnt, fw, bias)
-
-
-def make_pssm_sub_fn(meta: PssmMeta):
-    """(col_prep, sub_of) for in-kernel profile scoring.
-
-    ``sub_of(row_words, cctx)``: row_words are the W packed SMEM scalars of
-    one profile row; cctx comes from ``col_prep(ref_col)`` on the lane
-    vector. Mirrors make_sub_fn's bit-packed matrix path with runtime
-    tables.
-    """
-    fw, w_cnt, bias = meta.field_bits, meta.words, meta.bias
-    fpw = 32 // fw
-    fmask = (1 << fw) - 1
-    bw = 0
-    for k in range(fpw):
-        bw |= (bias & fmask) << (fw * k)
-    bias_word = bw - (1 << 32) if bw >= (1 << 31) else bw
-    idx_shift = fpw.bit_length() - 1
-    sh_shift = fw.bit_length() - 1
-
-    def col_prep(ref_col):
-        masks = [(ref_col >> idx_shift) == w for w in range(w_cnt)]
-        return masks, (ref_col & (fpw - 1)) << sh_shift
-
-    def sub_of(row_words, cctx):
-        masks, shift = cctx
-        # Codes >= W*fpw select no word and fall through to pure bias
-        # (score 0); codes in [S, W*fpw) hit bias fields packed at build
-        # time — the oracle's "outside the table scores 0" rule exactly.
-        word = jnp.full_like(shift, jnp.int32(bias_word))
-        for w in range(w_cnt):
-            word = jnp.where(masks[w], row_words[w], word)
-        return ((word >> shift) & fmask) - bias
-
-    return col_prep, sub_of
 
 
 # ---------------------------------------------------------------------------
@@ -300,55 +203,23 @@ def profile_align_oracle(
 # ---------------------------------------------------------------------------
 
 def pssm_scores_device(
-    words,
-    meta: PssmMeta,
+    P,
     pool,
     params: AlignmentParameters,
     algorithm: Algorithm,
-    interpret: bool = False,
     with_coords: bool = False,
 ):
-    """(m, W) packed words x (R, n) pool codes -> (R,) int32 scores; a
-    (K, m, W) stack of jointly-packed profiles (pack_pssms) -> (K, R).
-
-    One Pallas dispatch either way: profiles stream through SMEM along the
-    kernel's query axis while the big lane block stays resident, 1024 pool
-    sequences per register tile (see module docstring).
+    """(m, S) profile x (R, n) pool codes -> (R,) int32 scores on the device.
 
     ``with_coords`` (SW only): returns (scores, end_rows, end_cols) — the
-    argmax DP cell per (profile, entry) from the search kernel's device
-    fold (row-major strict-first-win, the reference SW end rule); 0-based
-    profile position / pool column of the hit's last aligned pair.
+    argmax DP cell per pool entry folded on the device (row-major
+    strict-first-win, the reference SW end rule); 0-based profile position
+    / pool column of the hit's last aligned pair.
     """
-    from versalignlib_tpu.ops.pallas_search import (_pack_lanes,
-                                                    _search_blocks)
-    from versalignlib_tpu.ops.pallas_score import BLOCK_PAIRS
+    from versalignlib_tpu.ops.xla import profile_scores
 
-    words = jnp.asarray(words, jnp.int32)
-    multi = words.ndim == 3
-    k = words.shape[0] if multi else 1
-    m = words.shape[1] if multi else words.shape[0]
-    pool = jnp.asarray(pool)
-    r, n = pool.shape
-    query_b = words.reshape(k, 1, m * meta.words)
-    lanes_b = _pack_lanes(pool, n)
-    out = _search_blocks(query_b, lanes_b, params, Algorithm(algorithm),
-                         True, interpret, pssm_meta=meta,
-                         with_coords=with_coords)
-    if with_coords:
-        out, aux = out
-    g = out.shape[0]
-    # (G, K, 8, 128) -> (K, G*1024) -> trim lane padding.
-    scores = jnp.transpose(out, (1, 0, 2, 3)).reshape(k, g * BLOCK_PAIRS)
-    if with_coords:
-        coords = jnp.transpose(aux, (1, 2, 0, 3, 4)).reshape(
-            k, 2, g * BLOCK_PAIRS)
-        if multi:
-            return scores[:, :r], coords[:, 0, :r], coords[:, 1, :r]
-        return scores[0, :r], coords[0, 0, :r], coords[0, 1, :r]
-    if multi:
-        return scores[:, :r]
-    return scores[0, :r]
+    return profile_scores(jnp.asarray(validate_pssm(P)), jnp.asarray(pool),
+                          params, Algorithm(algorithm), with_coords)
 
 
 def calibrate_profile(
@@ -382,12 +253,8 @@ def calibrate_profile(
         scores = score_profile_oracle(P, pool, params,
                                       Algorithm.SMITH_WATERMAN)
     else:
-        from versalignlib_tpu.ops.pallas_score import _is_tpu
-
-        words, meta = pack_pssm(P)
         scores = np.asarray(pssm_scores_device(
-            words, meta, pool, params, Algorithm.SMITH_WATERMAN,
-            interpret=not _is_tpu()))
+            P, pool, params, Algorithm.SMITH_WATERMAN))
     return calibrate_scores(scores, P.shape[0], n, samples=samples)
 
 
@@ -466,21 +333,20 @@ def profile_search(
     """Top-k pool entries for a profile: (scores, indices), score-sorted
     (ties keep the lower index, matching lax.top_k / the search paths).
 
-    ``P``: one (m, S) table, or a LIST of equal-shape tables — multi-profile
-    mode packs them jointly and scores every profile in ONE kernel dispatch
-    per pool chunk (the pool block stays resident while profiles stream
-    through SMEM), returning a list of (scores, indices).
+    ``P``: one (m, S) table, or a LIST of tables (shapes may differ) —
+    multi-profile mode scores each profile against the pool and returns a
+    list of (scores, indices).
 
     ``pool``: (R, n) uint8 code array or list of sequence strings
-    (padded + encoded with the reference rules). ``backend``: "pallas"
-    (compiled on TPU, interpret elsewhere), "oracle", or "auto".
-    ``chunk``: pool entries per device round (bounds the lane block's HBM
+    (padded + encoded with the reference rules). ``backend``: "oracle" for
+    the numpy reference; anything else runs the device scan.
+    ``chunk``: pool entries per device round (bounds the scan's device
     footprint to ~chunk*n int32 — the reference's memory-driven batching,
     OpenCLKernel.cpp:517-568; genome-scale pools stream through).
 
     ``hits=True`` (SW only) returns list[ProfileHit] instead — hit
-    coordinates ride the search kernel's device argmax fold (zero extra
-    host passes over the pool); ``alignments=True`` adds the full traceback
+    coordinates ride the scan's device argmax fold (zero extra host passes
+    over the pool); ``alignments=True`` adds the full traceback
     per reported hit via :func:`profile_align_oracle` (host-side, k tiny
     fills — the same division of labor as the pairwise pipeline's host
     decode); ``calibration`` (a GumbelCalibration, e.g. from
@@ -499,9 +365,9 @@ def profile_search(
     if want_coords and Algorithm(algorithm) != Algorithm.SMITH_WATERMAN:
         raise ValueError("profile hits with coordinates are SW-only "
                          "(NW overlap end cells are not a single argmax)")
+    Ps = [validate_pssm(p0) for p0 in P] if multi else [validate_pssm(P)]
     coord_rows = None
     if backend == "oracle":
-        Ps = [validate_pssm(p0) for p0 in P] if multi else [validate_pssm(P)]
         if want_coords:
             trips = [profile_argmax_oracle(p0, pool, params) for p0 in Ps]
             score_rows = [t[0] for t in trips]
@@ -510,32 +376,20 @@ def profile_search(
             score_rows = [score_profile_oracle(p0, pool, params, algorithm)
                           for p0 in Ps]
     else:
-        from versalignlib_tpu.ops.pallas_score import _is_tpu
-
-        interpret = not _is_tpu()
-        if multi:
-            words, meta = pack_pssms(P)
-        else:
-            words, meta = pack_pssm(P)
-        parts = [
-            pssm_scores_device(
-                words, meta, pool[lo:lo + chunk], params, algorithm,
-                interpret, with_coords=want_coords)
-            for lo in range(0, pool.shape[0], chunk)
-        ]
-        if want_coords:
-            out = np.concatenate([np.asarray(p[0]) for p in parts], axis=-1)
-            rows = np.concatenate([np.asarray(p[1]) for p in parts], axis=-1)
-            cols = np.concatenate([np.asarray(p[2]) for p in parts], axis=-1)
-            if multi:
-                score_rows = list(out)
-                coord_rows = [(rows[i], cols[i]) for i in range(len(out))]
+        score_rows, coord_rows = [], []
+        for p0 in Ps:
+            parts = [
+                pssm_scores_device(p0, pool[lo:lo + chunk], params, algorithm,
+                                   with_coords=want_coords)
+                for lo in range(0, pool.shape[0], chunk)
+            ]
+            if want_coords:
+                score_rows.append(np.concatenate([np.asarray(q[0]) for q in parts]))
+                coord_rows.append(
+                    (np.concatenate([np.asarray(q[1]) for q in parts]),
+                     np.concatenate([np.asarray(q[2]) for q in parts])))
             else:
-                score_rows = [out]
-                coord_rows = [(rows, cols)]
-        else:
-            out = np.concatenate([np.asarray(p) for p in parts], axis=-1)
-            score_rows = list(out) if multi else [out]
+                score_rows.append(np.concatenate([np.asarray(q) for q in parts]))
 
     def topk(scores):
         kk = min(k, scores.shape[0])
@@ -550,7 +404,6 @@ def profile_search(
             return [topk(s) for s in score_rows]
         return topk(score_rows[0])
 
-    Ps = [validate_pssm(p0) for p0 in P] if multi else [validate_pssm(P)]
     if db_len is None:
         db_len = int(pool.size)
 

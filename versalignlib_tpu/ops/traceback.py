@@ -1,11 +1,11 @@
 """Host-side traceback decode: pointer matrices -> gapped strings + CIGAR.
 
-Device kernels (XLA and Pallas) emit an *inner* pointer matrix of shape
+Device fills emit an *inner* pointer matrix of shape
 (read_len, ref_len) (uint8 codes from :class:`~versalignlib_tpu.types.Trace`)
 plus the traceback start cell; the boundary row/column of the reference's
 (m+1)x(n+1) matrix is implied (row 0 / col 0 = START; NW col 0 = UP,
 DefaultKernel.cpp:304,395). The walk itself is inherently sequential and
-data-dependent — exactly what a TPU is bad at — so it runs on host, mirroring
+data-dependent, so it runs on the host, mirroring
 the reference's scalar per-lane backtracks (SSEKernel.cpp:785-860,
 OpenCLKernel collect path). A native C++ decoder (versalignlib_tpu.native)
 accelerates batch decode; this module is the pure-Python fallback and the
@@ -22,7 +22,23 @@ import numpy as np
 
 from versalignlib_tpu.alphabet import substitution_scores
 from versalignlib_tpu.params import AlignmentParameters
-from versalignlib_tpu.types import Algorithm, Alignment, Trace, cigar_from_gapped
+from versalignlib_tpu.types import (Algorithm, Alignment, TieBreak, Trace,
+                                    cigar_from_gapped)
+
+
+def last_valid_positions(codes: np.ndarray, tie: TieBreak = TieBreak.DIAG_UP_LEFT,
+                         matrix=None) -> np.ndarray:
+    """Reference max_*_pos per row: index before the first invalid code, else
+    len-1 (DefaultKernel.cpp:308,348). Canonical flavor counts any nonzero
+    code valid; the SSE flavor only nonzero-scoring codes."""
+    if TieBreak(tie) == TieBreak.DIAG_UP_LEFT:
+        invalid = codes == 0
+    else:
+        from versalignlib_tpu.alphabet import make_validity
+
+        invalid = ~make_validity(matrix)(codes)
+    return np.where(invalid.any(axis=1), invalid.argmax(axis=1) - 1,
+                    codes.shape[1] - 1).astype(np.int32)
 
 
 def _text_from_codes(codes: np.ndarray) -> str:

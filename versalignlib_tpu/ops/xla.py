@@ -10,10 +10,11 @@ so each scan step is fully vectorized over (batch, ref_len) — the XLA
 equivalent of the reference's inter-pair SIMD lanes (SSEKernel.cpp:269-318)
 with the row turned data-parallel instead of sequential.
 
-This backend runs anywhere XLA runs (CPU mesh tests, TPU) and is the oracle
-for the Pallas kernels at full batch sizes. Semantics are bit-identical to
-the reference (gated by tests/test_golden.py through the numpy oracle and by
-tests/test_xla.py directly).
+This backend runs anywhere XLA runs (CPU tests, GPU) and is the reference
+for the hand-written GPU score kernel (ops/triton_score.py) at full batch
+sizes. Semantics are bit-identical to the reference (gated by
+tests/test_golden.py through the numpy oracle and by tests/test_xla.py
+directly).
 
 Compile-time specialization: ``params``, algorithm, and tie-break are static
 jit arguments — the analogue of the reference OpenCL backend baking scores
@@ -37,9 +38,8 @@ def _sub_row(read_col, refs, match, mismatch, matrix=None):
     """Substitution scores of one read column vs all ref positions.
 
     read_col: (B, 1) int32; refs: (B, n) int32 -> (B, n) int32.
-    Generic S x S ``matrix`` (static tuple) lowers to an XLA gather, which
-    the TPU backend turns into one-hot contractions; row/col 0 are zero so
-    padding and out-of-range codes score 0.
+    Generic S x S ``matrix`` (static tuple) lowers to an XLA gather; row/col
+    0 are zero so padding and out-of-range codes score 0.
     """
     if matrix is not None:
         m = jnp.asarray(matrix, dtype=jnp.int32)
@@ -83,24 +83,25 @@ def _row_solve_open(t_full, gap_open, gap_ext):
     return run[:, :-1] + gap_ext * j[:, 1:]
 
 
-@functools.partial(jax.jit, static_argnames=("params", "algorithm"))
-def score_batch(reads, refs, params: AlignmentParameters, algorithm: Algorithm):
-    """Batched scores. reads (B, m), refs (B, n) uint8 codes -> (B,) int32.
+def _score_scan(xs, sub_fn, refs, params: AlignmentParameters, local: bool,
+                with_coords: bool = False):
+    """Score-only row scan shared by pairwise and profile scoring.
 
-    Linear gaps use the prefix-max row solve; affine (Gotoh) adds the F row
-    to the scan carry and the open-aware E prefix (see ops/gotoh.py).
+    ``xs``: per-row scan inputs (leading axis = DP rows); ``sub_fn(x)`` gives
+    that row's (B, n) substitution scores. Linear gaps use the prefix-max row
+    solve; affine (Gotoh) adds the F row to the carry and the open-aware E
+    prefix (see ops/gotoh.py). ``with_coords`` (SW): also track the first
+    cell (row-major) attaining the running max — the reference SW end rule.
     """
-    reads = reads.astype(jnp.int32)
-    refs = refs.astype(jnp.int32)
     b, n = refs.shape
-    local = algorithm == Algorithm.SMITH_WATERMAN
     gap_ref = jnp.int32(params.score_gap_ref)
     gap_read = params.score_gap_read
     affine = params.affine
 
-    def body(carry, read_col):
-        prev, f_prev, best = carry  # prev: (B, n+1) H row
-        sub = _sub_row(read_col[:, None], refs, params.score_match, params.score_mismatch, params.matrix)
+    def body(carry, x):
+        i, xrow = x
+        prev, f_prev, best, best_i, best_j = carry  # prev: (B, n+1) H row
+        sub = sub_fn(xrow)
         if affine:
             f_row = jnp.maximum(
                 prev[:, 1:] + params.gap_open_ref + gap_ref, f_prev + gap_ref
@@ -120,21 +121,66 @@ def score_batch(reads, refs, params: AlignmentParameters, algorithm: Algorithm):
             h = jnp.concatenate([jnp.zeros((b, 1), jnp.int32), h_inner], axis=1)
         else:
             h = _row_solve(t_full, gap_read)
-        if local:
+        if local and with_coords:
+            row_max = jnp.max(h[:, 1:], axis=1)
+            upd = row_max > best
+            best = jnp.where(upd, row_max, best)
+            best_i = jnp.where(upd, i, best_i)
+            best_j = jnp.where(
+                upd, jnp.argmax(h[:, 1:], axis=1).astype(jnp.int32), best_j)
+        elif local:
             best = jnp.maximum(best, jnp.max(h, axis=1))
         else:
             # NW overlap score: max over the LAST column of every row
             # (DefaultKernel.cpp:177); the final-row max is added after.
             best = jnp.maximum(best, h[:, -1])
-        return (h, f_row, best), None
+        return (h, f_row, best, best_i, best_j), None
 
     f_init = jnp.full((b, n), NEG_INF, jnp.int32) if affine else jnp.zeros((b, n), jnp.int32)
-    init = (jnp.zeros((b, n + 1), jnp.int32), f_init, jnp.zeros((b,), jnp.int32))
-    (h_last, _, best), _ = jax.lax.scan(body, init, reads.T)
+    zeros_b = jnp.zeros((b,), jnp.int32)
+    init = (jnp.zeros((b, n + 1), jnp.int32), f_init, zeros_b, zeros_b, zeros_b)
+    (h_last, _, best, best_i, best_j), _ = jax.lax.scan(body, init, xs)
     if not local:
         best = jnp.maximum(best, jnp.max(h_last, axis=1))
         best = jnp.maximum(best, 0)
+    if with_coords:
+        return best, best_i, best_j
     return best
+
+
+@functools.partial(jax.jit, static_argnames=("params", "algorithm"))
+def score_batch(reads, refs, params: AlignmentParameters, algorithm: Algorithm):
+    """Batched scores. reads (B, m), refs (B, n) uint8 codes -> (B,) int32."""
+    reads = reads.astype(jnp.int32)
+    refs = refs.astype(jnp.int32)
+    m = reads.shape[1]
+    return _score_scan(
+        (jnp.arange(m, dtype=jnp.int32), reads.T),
+        lambda read_col: _sub_row(read_col[:, None], refs, params.score_match,
+                                  params.score_mismatch, params.matrix),
+        refs, params, algorithm == Algorithm.SMITH_WATERMAN)
+
+
+@functools.partial(jax.jit,
+                   static_argnames=("params", "algorithm", "with_coords"))
+def profile_scores(profile, pool, params: AlignmentParameters,
+                   algorithm: Algorithm, with_coords: bool = False):
+    """(m, S) PSSM x (R, n) pool codes -> (R,) int32 scores.
+
+    Row i's substitution scores are the profile row gathered at the pool
+    codes (codes outside [0, S) score 0). ``with_coords`` (SW only):
+    (scores, end_rows, end_cols), the first cell attaining the max in
+    row-major order.
+    """
+    profile = profile.astype(jnp.int32)
+    pool = pool.astype(jnp.int32)
+    s = profile.shape[1]
+    inside = (pool >= 0) & (pool < s)
+    codes = jnp.where(inside, pool, 0)
+    return _score_scan(
+        (jnp.arange(profile.shape[0], dtype=jnp.int32), profile),
+        lambda prow: jnp.where(inside, prow[codes], 0),
+        pool, params, algorithm == Algorithm.SMITH_WATERMAN, with_coords)
 
 
 # ---------------------------------------------------------------------------
@@ -410,6 +456,89 @@ def align_affine_batch(reads, refs, params: AlignmentParameters,
 
 
 # ---------------------------------------------------------------------------
+# Pointer fill -> host decode
+# ---------------------------------------------------------------------------
+
+#: pointer-plane bytes per device round of the dense align path
+ALIGN_CHUNK_BYTES = 1 << 30
+
+
+def fill_pointers(reads, refs, params: AlignmentParameters,
+                  algorithm: Algorithm, tie: TieBreak):
+    """Device pointer fill (linear or affine) -> (ptr (B, m, n) uint8,
+    start_read (B,), start_ref (B,), score (B,))."""
+    fill = align_affine_batch if params.affine else align_batch
+    return fill(reads, refs, params, Algorithm(algorithm), tie)
+
+
+def decode_pointers(ptr, reads, refs, start_r, start_f, scores,
+                    params: AlignmentParameters, algorithm: Algorithm,
+                    raw: bool = False, gapped: bool = True,
+                    read_texts=None, ref_texts=None):
+    """Host decode of one filled chunk: the native walker, or the Python
+    walkers when the native library is unavailable (not for ``raw``).
+    Device outputs may carry padding rows past ``reads``; they are cut
+    here, on the host."""
+    b = reads.shape[0]
+    ptr, start_r, start_f, scores = (
+        np.asarray(x)[:b] for x in (ptr, start_r, start_f, scores))
+    try:
+        from versalignlib_tpu.native import decode_batch_native
+
+        return decode_batch_native(
+            ptr, reads, refs, start_r, start_f, params, algorithm, scores,
+            read_texts, ref_texts, affine=params.affine, raw=raw,
+            gapped=gapped)
+    except ImportError:
+        if raw:
+            raise  # the column store requires the native decoder
+    decode = tb.decode_batch_affine if params.affine else tb.decode_batch
+    return decode(ptr, reads, refs, start_r, start_f, params, algorithm,
+                  scores, read_texts, ref_texts)
+
+
+def align_pairs(reads, refs, params: AlignmentParameters,
+                algorithm: Algorithm, tie: TieBreak = TieBreak.DIAG_UP_LEFT,
+                raw: bool = False, gapped: bool = True,
+                chunk_pairs: int | None = None, read_texts=None,
+                ref_texts=None):
+    """Full alignment of a (B, m) x (B, n) batch: the pointer plane is filled
+    ``chunk_pairs`` pairs at a time (default: about ``ALIGN_CHUNK_BYTES`` of
+    plane per round) and decoded on the host one chunk behind the device.
+
+    ``raw=True`` returns an :class:`~versalignlib_tpu.types.AlignmentBatch`
+    column store; ``gapped=False`` (raw only) skips the gapped strings.
+    ``read_texts``/``ref_texts``: optional display strings for the gapped
+    output (e.g. protein letters) in place of the DNA code table.
+    """
+    from versalignlib_tpu.types import AlignmentBatch
+
+    algorithm = Algorithm(algorithm)
+    reads = np.asarray(reads)
+    refs = np.asarray(refs)
+    b, m = reads.shape
+    n = refs.shape[1]
+    if chunk_pairs is None:
+        chunk_pairs = max(1, ALIGN_CHUNK_BYTES // max(m * n, 1))
+    results, pending = [], None
+    for lo in range(0, b, chunk_pairs):
+        sl = slice(lo, lo + chunk_pairs)
+        dev = fill_pointers(jnp.asarray(reads[sl]), jnp.asarray(refs[sl]),
+                            params, algorithm, tie)
+        if pending is not None:
+            results.append(decode_pointers(*pending))
+        pending = (dev[0], reads[sl], refs[sl], *dev[1:], params, algorithm,
+                   raw, gapped,
+                   None if read_texts is None else read_texts[sl],
+                   None if ref_texts is None else ref_texts[sl])
+    if pending is not None:
+        results.append(decode_pointers(*pending))
+    if raw:
+        return AlignmentBatch.concat(results)
+    return [a for chunk in results for a in chunk]
+
+
+# ---------------------------------------------------------------------------
 # Backend adapter
 # ---------------------------------------------------------------------------
 
@@ -417,8 +546,9 @@ class XLABackend:
     """Dispatcher-facing adapter around the jit kernels."""
 
     name = "xla"
-    #: pairs per device batch for the align path (bounds pointer-matrix HBM)
-    align_chunk = 256
+    #: pairs per device round of the align path (None: sized by
+    #: ``ALIGN_CHUNK_BYTES``)
+    align_chunk: int | None = None
 
     def is_available(self) -> bool:
         return True
@@ -427,37 +557,7 @@ class XLABackend:
         out = score_batch(jnp.asarray(reads), jnp.asarray(refs), params, Algorithm(algorithm))
         return np.asarray(out, dtype=np.int32)
 
-    def compute_alignments(self, algorithm, reads, refs, params, tie):
-        algorithm = Algorithm(algorithm)
-        if params.affine:
-            results: list[Alignment] = []
-            for lo in range(0, reads.shape[0], self.align_chunk):
-                r = jnp.asarray(reads[lo : lo + self.align_chunk])
-                f = jnp.asarray(refs[lo : lo + self.align_chunk])
-                ptr, sr, sf, sc = align_affine_batch(r, f, params, algorithm, tie)
-                results.extend(
-                    tb.decode_batch_affine(
-                        np.asarray(ptr), reads[lo : lo + self.align_chunk],
-                        refs[lo : lo + self.align_chunk],
-                        np.asarray(sr), np.asarray(sf), params, algorithm,
-                        np.asarray(sc),
-                    )
-                )
-            return results
-        results: list[Alignment] = []
-        for lo in range(0, reads.shape[0], self.align_chunk):
-            r = jnp.asarray(reads[lo : lo + self.align_chunk])
-            f = jnp.asarray(refs[lo : lo + self.align_chunk])
-            ptr, start_r, start_f, best = align_batch(r, f, params, algorithm, tie)
-            # align_batch emits exact end-cell scores for BOTH algorithms
-            # (NW via the captured last-valid-row H), so pass them through
-            # uniformly instead of reconstructing NW scores during the walk.
-            results.extend(
-                tb.decode_batch(
-                    np.asarray(ptr), reads[lo : lo + self.align_chunk],
-                    refs[lo : lo + self.align_chunk],
-                    np.asarray(start_r), np.asarray(start_f),
-                    params, algorithm, np.asarray(best),
-                )
-            )
-        return results
+    def compute_alignments(self, algorithm, reads, refs, params, tie,
+                           raw: bool = False, gapped: bool = True):
+        return align_pairs(reads, refs, params, algorithm, tie, raw=raw,
+                           gapped=gapped, chunk_pairs=self.align_chunk)

@@ -1,9 +1,9 @@
-"""Multi-chip scaling: device meshes + data-parallel alignment.
+"""Multi-device scaling: device meshes + data-parallel alignment.
 
 The reference is single-node shared-memory (OpenMP threads,
 DefaultKernel.cpp:45-48); this package is the greenfield distributed layer:
 pair batches shard data-parallel over a ``jax.sharding.Mesh`` and results
-come back via XLA collectives over ICI/DCN.
+come back via XLA collectives (NCCL between GPUs).
 """
 
 from versalignlib_tpu.parallel.mesh import make_mesh

@@ -1,11 +1,12 @@
 """Data-parallel batched alignment over a device mesh.
 
 Replaces the reference's OpenMP ``parallel for`` over pairs
-(DefaultKernel.cpp:45-48) at pod scale: the pair batch shards over the
-``data`` mesh axis via ``shard_map``, every device runs the local kernel
-(Pallas on TPU, the XLA scan kernel elsewhere), and results are either left
-sharded (for streaming pipelines) or gathered. The only collective is the
-trailing all-gather of (B,)-shaped scores / pointer tensors, which rides ICI.
+(DefaultKernel.cpp:45-48) across devices: the pair batch shards over the
+``data`` mesh axis via ``shard_map``, every device runs the local path (the
+GPU score kernel where it compiles, the XLA scans elsewhere; the XLA
+pointer fill for alignment), and results are either left sharded (for
+streaming pipelines) or gathered. The only collective is the trailing
+gather of (B,)-shaped scores / pointer tensors.
 """
 
 from __future__ import annotations
@@ -22,32 +23,38 @@ from versalignlib_tpu.params import AlignmentParameters
 from versalignlib_tpu.types import Algorithm, TieBreak
 
 
-def _local_score_fn(impl: str, params, algorithm, interpret: bool):
-    if impl == "pallas":
-        from versalignlib_tpu.ops.pallas_score import score_batch_device
-
-        return lambda r, f: score_batch_device(r, f, params, algorithm, interpret)
-    from versalignlib_tpu.ops.xla import score_batch
-
-    return lambda r, f: score_batch(r, f, params, algorithm)
-
-
 @functools.partial(
     jax.jit,
-    static_argnames=("params", "algorithm", "mesh", "impl", "interpret"),
+    static_argnames=("params", "algorithm", "mesh", "impl"),
 )
 def _distributed_score(reads, refs, params: AlignmentParameters,
-                       algorithm: Algorithm, mesh: Mesh, impl: str,
-                       interpret: bool):
-    fn = _local_score_fn(impl, params, algorithm, interpret)
+                       algorithm: Algorithm, mesh: Mesh, impl: str):
+    from versalignlib_tpu.dispatch import device_score_fn
+
+    score = device_score_fn(impl)
     mapped = jax.shard_map(
-        fn,
+        lambda r, f: score(r, f, params, algorithm),
         mesh=mesh,
         in_specs=(P(DATA_AXIS, None), P(DATA_AXIS, None)),
         out_specs=P(DATA_AXIS),
         check_vma=False,  # scan carries start unvarying; per-shard DP is pure
     )
     return mapped(reads, refs)
+
+
+def _shard_rows(mesh: Mesh, *arrays):
+    """Pad (B, L) arrays to a multiple of the data axis with all-invalid
+    rows and place them sharded over it."""
+    n_dev = mesh.devices.size
+    b = arrays[0].shape[0]
+    b_pad = -(-b // n_dev) * n_dev
+    sharding = NamedSharding(mesh, P(DATA_AXIS, None))
+    return [
+        jax.device_put(jnp.asarray(np.pad(np.asarray(x),
+                                          ((0, b_pad - b), (0, 0)))),
+                       sharding)
+        for x in arrays
+    ]
 
 
 def distributed_score_batch(
@@ -57,28 +64,20 @@ def distributed_score_batch(
     algorithm: Algorithm,
     mesh: Mesh | None = None,
     impl: str = "auto",
-    interpret: bool = False,
 ) -> np.ndarray:
     """Score a (B, m) x (B, n) batch sharded over ``mesh``'s data axis.
 
     B is padded to a multiple of the axis size with all-invalid pairs
     (score 0), the reference's tail-batch semantics, so any batch size works.
     """
+    from versalignlib_tpu.dispatch import resolve_score_impl
+
     if mesh is None:
         mesh = make_mesh()
-    n_dev = mesh.devices.size
-    if impl == "auto":
-        impl = "pallas" if mesh.devices.flat[0].platform == "tpu" else "xla"
-
     b = reads.shape[0]
-    b_pad = -(-b // n_dev) * n_dev
-    reads = jnp.asarray(np.pad(np.asarray(reads), ((0, b_pad - b), (0, 0))))
-    refs = jnp.asarray(np.pad(np.asarray(refs), ((0, b_pad - b), (0, 0))))
-    sharding = NamedSharding(mesh, P(DATA_AXIS, None))
-    reads = jax.device_put(reads, sharding)
-    refs = jax.device_put(refs, sharding)
+    reads, refs = _shard_rows(mesh, reads, refs)
     out = _distributed_score(reads, refs, params, Algorithm(algorithm), mesh,
-                             impl, interpret)
+                             resolve_score_impl(impl))
     return np.asarray(out)[:b].astype(np.int32)
 
 
@@ -88,58 +87,19 @@ def distributed_score_batch(
 )
 def distributed_align_device(reads, refs, params: AlignmentParameters,
                              algorithm: Algorithm, tie: TieBreak, mesh: Mesh):
-    """Sharded DENSE-uint8 pointer fill through the portable XLA kernel.
-
-    Kept as the portable (non-TPU) fallback; the production pod path is
-    :func:`distributed_align_batch`, which runs the packed Pallas fill
-    (2 bits/cell — 4x less D2H than this dense stream) on every shard.
-    """
-    from versalignlib_tpu.ops.xla import align_batch
+    """Sharded pointer fill (linear or affine) through the XLA scans:
+    (ptr (B, m, n) uint8, start_read, start_ref, score), all sharded."""
+    from versalignlib_tpu.ops.xla import fill_pointers
 
     mapped = jax.shard_map(
-        lambda r, f: align_batch(r, f, params, algorithm, tie),
+        lambda r, f: fill_pointers(r, f, params, algorithm, tie),
         mesh=mesh,
         in_specs=(P(DATA_AXIS, None), P(DATA_AXIS, None)),
-        out_specs=(P(DATA_AXIS, None, None), P(DATA_AXIS), P(DATA_AXIS), P(DATA_AXIS)),
+        out_specs=(P(DATA_AXIS, None, None), P(DATA_AXIS), P(DATA_AXIS),
+                   P(DATA_AXIS)),
         check_vma=False,
     )
     return mapped(reads, refs)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("params", "algorithm", "tie", "mesh", "affine", "interpret"),
-)
-def _distributed_align_packed(reads_b, refs_b, mrp_b, params, algorithm,
-                              tie, mesh: Mesh, affine: bool, interpret: bool):
-    """Shard 1024-pair BLOCKS over the data axis; every device runs the
-    packed Pallas pointer fill on its shard (the reference's per-batch
-    partitioning, OpenCLKernel.cpp:517-583, lifted to a pod)."""
-    from versalignlib_tpu.ops.pallas_align import (_affine_align_blocks,
-                                                   _align_blocks)
-
-    local = Algorithm(algorithm) == Algorithm.SMITH_WATERMAN
-
-    def fn(r, f, mrp):
-        if affine:
-            out = _affine_align_blocks(r, f, mrp, params, algorithm, tie,
-                                       interpret)
-        else:
-            out = _align_blocks(r, f, mrp, params, algorithm, tie, interpret)
-        ptr, aux, hsel = out
-        return (ptr, aux) if local else (ptr, aux, hsel)
-
-    out_specs = (P(DATA_AXIS), P(DATA_AXIS)) if local else (
-        P(DATA_AXIS), P(DATA_AXIS), P(DATA_AXIS))
-    mapped = jax.shard_map(
-        fn,
-        mesh=mesh,
-        in_specs=(P(DATA_AXIS), P(DATA_AXIS), P(DATA_AXIS)),
-        out_specs=out_specs,
-        check_vma=False,
-    )
-    out = mapped(reads_b, refs_b, mrp_b)
-    return out if not local else (*out, None)
 
 
 def distributed_align_batch(
@@ -149,58 +109,44 @@ def distributed_align_batch(
     algorithm: Algorithm,
     tie: TieBreak = TieBreak.DIAG_UP_LEFT,
     mesh: Mesh | None = None,
-    interpret: bool | None = None,
-) -> list:
+    raw: bool = False,
+    gapped: bool = True,
+    chunk_pairs: int | None = None,
+):
     """Full alignment of a (B, m) x (B, n) batch sharded over ``mesh``.
 
-    Every device fills packed pointers for its 1024-pair blocks (2-bit
-    linear / 4-bit affine words); the host decodes shard results with the
-    native walker. B pads up to blocks x devices with all-invalid pairs
-    (the reference's tail-batch fill-up). Affine routes through the Gotoh
-    kernel instead of silently bypassing the mesh, and the only collective
-    is the trailing result gather.
+    Every device fills the pointer planes of its shard; the host decodes
+    them with the native walker one round behind the devices. Rounds hold
+    ``chunk_pairs`` pairs (default: about ``xla.ALIGN_CHUNK_BYTES`` of plane
+    per device). Pads are all-invalid pairs (the reference's tail-batch
+    fill-up) and are cut off on the host. ``raw``/``gapped`` as in
+    :meth:`~versalignlib_tpu.dispatch.AlignmentEngine.compute_alignments`.
     """
-    from versalignlib_tpu.ops.pallas_align import (
-        ALIGN_WAVE_ROWS, _decode_affine_chunk, _decode_chunk, _last_valid_pos,
-        _pack_blocks, _pack_vec, _pick_pack, _pick_pack_affine,
-    )
-    from versalignlib_tpu.ops.pallas_score import BLOCK_PAIRS
+    from versalignlib_tpu.ops.xla import ALIGN_CHUNK_BYTES, decode_pointers
+    from versalignlib_tpu.types import AlignmentBatch
 
     if mesh is None:
         mesh = make_mesh()
-    affine = params.affine
-    if interpret is None:
-        interpret = mesh.devices.flat[0].platform != "tpu"
-    n_dev = mesh.devices.size
+    algorithm = Algorithm(algorithm)
     reads = np.asarray(reads)
     refs = np.asarray(refs)
     b, m = reads.shape
     n = refs.shape[1]
-    if b == 0:
-        return []
-
-    g = n_dev * max(1, -(-b // (BLOCK_PAIRS * n_dev)))
-    b_pad = g * BLOCK_PAIRS
-    m_pad = -(-m // ALIGN_WAVE_ROWS) * ALIGN_WAVE_ROWS
-    r_pad = np.pad(reads, ((0, b_pad - b), (0, m_pad - m)))
-    f_pad = np.pad(refs, ((0, b_pad - b), (0, 0)))
-    mrp = _last_valid_pos(np.pad(reads, ((0, b_pad - b), (0, 0))), tie,
-                          params.matrix)
-
-    sharding = NamedSharding(mesh, P(DATA_AXIS))
-    reads_b = jax.device_put(jnp.asarray(_pack_blocks(r_pad, g, m_pad)), sharding)
-    refs_b = jax.device_put(jnp.asarray(_pack_blocks(f_pad, g, n)), sharding)
-    mrp_b = jax.device_put(jnp.asarray(_pack_vec(mrp, g)), sharding)
-    ptr, aux, hsel = _distributed_align_packed(
-        reads_b, refs_b, mrp_b, params, Algorithm(algorithm), tie, mesh,
-        affine, interpret,
-    )
-    decode = _decode_affine_chunk if affine else _decode_chunk
-    pack = _pick_pack_affine(n) if affine else _pick_pack(n)
-    out = decode(
-        0, reads, refs, mrp[:b], g, np.asarray(ptr), np.asarray(aux),
-        None if hsel is None else np.asarray(hsel),
-        params, Algorithm(algorithm), tie,
-        pack, n, None, None,
-    )
-    return out[:b]
+    if chunk_pairs is None:
+        chunk_pairs = mesh.devices.size * max(
+            1, ALIGN_CHUNK_BYTES // max(m * n, 1))
+    results, pending = [], None
+    for lo in range(0, b, chunk_pairs):
+        sl = slice(lo, lo + chunk_pairs)
+        r_dev, f_dev = _shard_rows(mesh, reads[sl], refs[sl])
+        dev = distributed_align_device(r_dev, f_dev, params, algorithm, tie,
+                                       mesh)
+        if pending is not None:
+            results.append(decode_pointers(*pending))
+        pending = (dev[0], reads[sl], refs[sl], *dev[1:], params, algorithm,
+                   raw, gapped)
+    if pending is not None:
+        results.append(decode_pointers(*pending))
+    if raw:
+        return AlignmentBatch.concat(results)
+    return [a for chunk in results for a in chunk]

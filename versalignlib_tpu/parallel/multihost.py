@@ -1,16 +1,17 @@
-"""Multi-host (pod-scale) data-parallel driver layer.
+"""Multi-host data-parallel driver layer.
 
 The reference is strictly single-node (SURVEY §2.6: no processes, no
 network — its widest scope is an OpenMP ``parallel for`` over pairs,
-/root/reference/src/Kernels/default/DefaultKernel.cpp:45-48). At pod scale
-the TPU-native mapping is process data-parallelism over the pair batch:
+/root/reference/src/Kernels/default/DefaultKernel.cpp:45-48). Across hosts
+the mapping is process data-parallelism over the pair batch, one process
+per host owning that host's local devices:
 
 - **Scoring** runs as ONE global XLA program: every process feeds its
   contiguous row slice into a globally-sharded array
   (``jax.make_array_from_process_local_data``), ``shard_map`` over the
   global mesh runs the local kernel per device, and a single XLA
   all-gather (inserted by an ``out_shardings`` constraint) replicates the
-  4-byte-per-pair scores over ICI/DCN.
+  4-byte-per-pair scores over the interconnect.
 - **Alignment** stays host-local by construction: pointer streams are
   megabytes per block and are decoded on the host that produced them, so
   each process aligns its slice on its OWN local-device mesh and emits a
@@ -18,10 +19,10 @@ the TPU-native mapping is process data-parallelism over the pair batch:
   zero (callers merge shard files, or gather scores only).
 
 Both paths require ``jax.distributed.initialize`` to have run (see
-:func:`initialize`); on a real TPU pod slice the no-argument form
-auto-detects the coordinator from the TPU metadata. Validated in CI by
-spawning real multi-process CPU workers (tests/test_multihost.py) — the
-same code path, with Gloo standing in for ICI.
+:func:`initialize`) with an explicit coordinator address, process count
+and process id. Validated in CI by spawning real multi-process CPU
+workers (tests/test_multihost.py) — the same code path, with Gloo standing
+in for the interconnect.
 """
 
 from __future__ import annotations
@@ -39,9 +40,9 @@ def initialize(
 ) -> None:
     """Join the multi-process runtime (idempotent).
 
-    On TPU pod slices call with no arguments — JAX auto-detects the
-    coordinator. For CPU-based testing / non-TPU clusters pass the
-    coordinator address and process topology explicitly.
+    Pass the coordinator address (``host:port`` of process 0) and the
+    process topology explicitly; the no-argument form only works where a
+    cluster environment tells JAX about them.
     """
     import jax
 
@@ -79,7 +80,6 @@ def multihost_score_batch(
     params: AlignmentParameters,
     algorithm: Algorithm,
     impl: str = "auto",
-    interpret: bool = False,
 ) -> np.ndarray:
     """Score a GLOBAL (B, m) × (B, n) encoded batch across all hosts.
 
@@ -89,20 +89,20 @@ def multihost_score_batch(
     int32 score vector on every host.
 
     The batch pads to the global device count with all-invalid pairs (the
-    reference's tail fill-up, SSEKernel.cpp:84-128, lifted to a pod); the
+    reference's tail fill-up, SSEKernel.cpp:84-128, lifted to many hosts); the
     only collective is the trailing score all-gather.
     """
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
+    from versalignlib_tpu.dispatch import resolve_score_impl
     from versalignlib_tpu.parallel.distributed import _distributed_score
     from versalignlib_tpu.parallel.mesh import DATA_AXIS, make_mesh
 
     mesh = make_mesh()  # all global devices, process-contiguous order
     n_dev = mesh.devices.size
-    if impl == "auto":
-        impl = "pallas" if mesh.devices.flat[0].platform == "tpu" else "xla"
+    impl = resolve_score_impl(impl)
 
     reads = np.asarray(reads)
     refs = np.asarray(refs)
@@ -123,7 +123,7 @@ def multihost_score_batch(
         sharding, f_pad[lo : lo + per_proc])
 
     out = _distributed_score(g_reads, g_refs, params, Algorithm(algorithm),
-                             mesh, impl, interpret)
+                             mesh, impl)
     # Replicate: out_shardings P() makes XLA insert the all-gather.
     gathered = jax.jit(
         lambda x: x, out_shardings=NamedSharding(mesh, P())
@@ -137,7 +137,6 @@ def multihost_align_batch(
     params: AlignmentParameters,
     algorithm: Algorithm,
     tie: TieBreak = TieBreak.DIAG_UP_LEFT,
-    interpret: bool | None = None,
 ) -> tuple[list, int, int]:
     """Full alignment of a GLOBAL batch; this host computes and decodes
     its contiguous slice on its local devices.
@@ -161,6 +160,6 @@ def multihost_align_batch(
     local_mesh = make_mesh(devices=jax.local_devices())
     alns = distributed_align_batch(
         reads[lo:hi], refs[lo:hi], params, algorithm, tie=tie,
-        mesh=local_mesh, interpret=interpret,
+        mesh=local_mesh,
     )
     return alns, lo, hi

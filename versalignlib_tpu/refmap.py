@@ -1,19 +1,19 @@
-"""Whole-reference read mapping: exhaustive window tiling on TPU.
+"""Whole-reference read mapping: exhaustive window tiling on the device.
 
 ADDITIVE over the reference (strictly 1:1 pairwise,
 /root/reference/include/AlignmentKernel.h:34-44) and over ``search.py``'s
 panel mode (best hit among SHORT panel entries): this maps reads against
 LONG references — contigs, chromosomes — by tiling each reference into
 overlapping fixed-size windows and scoring every (read, window) pair with
-the production dense kernel.
+the device's dense score path.
 
 Why brute force instead of seeding: heuristic mappers (minimizer seed →
-chain → extend) exist to avoid DP work a CPU cannot afford. One TPU core
-fills >3e11 dense cells/s here, so a 128bp read costs ~3µs per megabase of
-reference — exhaustive search is PRACTICAL for panel-to-bacterial-genome
-scale, and it is exact by construction: no seed, no chain, no mapping
-missed because a heuristic skipped it. The tiling is also the natural TPU
-shape — thousands of identical fixed-size pairs, zero control flow.
+chain → extend) exist to avoid DP work a CPU cannot afford. An accelerator
+fills dense cells fast enough that exhaustive search is practical for
+panel-to-bacterial-genome scale, and it is exact by construction: no seed,
+no chain, no mapping missed because a heuristic skipped it. The tiling is
+also the natural accelerator shape — thousands of identical fixed-size
+pairs, zero control flow.
 
 Correctness of the tiling: ``stride = window - overlap`` with ``overlap >=
 max_read_span`` guarantees every reference interval a read can align to
@@ -36,9 +36,9 @@ import numpy as np
 
 from versalignlib_tpu.alphabet import pad_and_encode, reverse_complement_codes
 from versalignlib_tpu.params import AlignmentParameters, DEFAULT_PARAMETERS
-from versalignlib_tpu.search import (NEG32, _align_pairs,
-                                     _check_dense_budget, _chunk_scores,
-                                     _encode, _mapq_from_gap, _pick_impl)
+from versalignlib_tpu.dispatch import resolve_score_impl
+from versalignlib_tpu.search import (NEG32, _align_pairs, _chunk_scores,
+                                     _encode, _mapq_from_gap)
 from versalignlib_tpu.types import Algorithm, Alignment, TieBreak
 
 #: minimum top-k pool per read; map_to_reference widens it to 2x the
@@ -126,8 +126,8 @@ def tile_references(
     )
 
 
-def _stream_topk(reads_enc, windows, params, algorithm, impl, interpret,
-                 chunk, mesh, k: int = TOPK, panel_axis: str = "reads"):
+def _stream_topk(reads_enc, windows, params, algorithm, impl, chunk,
+                 mesh, k: int = TOPK, panel_axis: str = "reads"):
     """Top-k (score, window-index) fold over window chunks.
 
     Returns (vals (B, k) int32 desc, args (B, k) int32). Within-chunk and
@@ -151,20 +151,19 @@ def _stream_topk(reads_enc, windows, params, algorithm, impl, interpret,
             from versalignlib_tpu.search import _mesh_topk_scores
 
             top_v, top_a = _mesh_topk_scores(reads_enc, pc, params,
-                                             algorithm, impl, interpret,
-                                             mesh, k=kk)
+                                             algorithm, impl, mesh, k=kk)
         elif mesh is None:
             # Device-side top-k: O(B*k) over the link instead of (B, R);
             # lax.top_k is stable (ties keep the LOWER window index).
             from versalignlib_tpu.search import _score_topk_chunk
 
             v, i = _score_topk_chunk(reads_dev, jnp.asarray(pc), params,
-                                     algorithm, impl, interpret, kk)
+                                     algorithm, impl, kk)
             top_v = np.asarray(v).astype(np.int64)
             top_a = np.asarray(i).astype(np.int64)
         else:
             s = _chunk_scores(reads_enc, reads_dev, pc, params, algorithm,
-                              impl, interpret, mesh).astype(np.int64)
+                              impl, mesh).astype(np.int64)
             # Composite key: high score first, LOW window index on ties —
             # argpartition alone picks an arbitrary member of a tied set,
             # which would violate the scan-order convention.
@@ -286,8 +285,7 @@ def map_to_reference(
                              np.zeros(b, np.int8), np.zeros(b, np.uint8),
                              [unmapped_alignment() for _ in range(b)]
                              if align else None)
-    impl, interpret = _pick_impl(impl, mesh)
-    _check_dense_budget(m, index.window, params, impl, interpret)
+    impl = resolve_score_impl(impl)
     algorithm = Algorithm(algorithm)
     chunk = max(1, min(n_w, max_pairs // max(b, 1)))
     # Same-locus window distance: windows closer than this (same ref)
@@ -296,13 +294,13 @@ def map_to_reference(
     min_dist = -(-index.window // index.stride)
     k = max(TOPK, 2 * min_dist)
     vals, args = _stream_topk(reads_enc, index.windows, params, algorithm,
-                              impl, interpret, chunk, mesh, k=k,
+                              impl, chunk, mesh, k=k,
                               panel_axis=panel_axis)
     strand = np.zeros(b, dtype=np.int8)
     if both_strands:
         rc_enc = reverse_complement_codes(reads_enc)
         rc_vals, rc_args = _stream_topk(rc_enc, index.windows, params,
-                                        algorithm, impl, interpret, chunk,
+                                        algorithm, impl, chunk,
                                         mesh, k=k, panel_axis=panel_axis)
         rev = rc_vals[:, 0] > vals[:, 0]     # strict >: forward wins ties
         # The distinct-locus second-best needs candidates from BOTH

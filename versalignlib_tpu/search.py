@@ -8,15 +8,14 @@ classic production use of a pairwise aligner is one-vs-many: map each read
 against a panel of references, keep the best hit(s), and only traceback the
 winners (filter-then-align).
 
-TPU-first shape: on TPU the cross product never materializes at all —
-the dedicated one-vs-many kernel (ops/pallas_search.py) streams the
-smaller side through SMEM as broadcast queries against 1024 lane-resident
-candidates, so HBM holds B + R sequences plus the (B, R) scores, not B×R
-pairs. (The portable XLA path tiles the pairs on device inside jit; the
-host→device link still carries only B + R sequences.) The panel streams
-through in chunks bounded by ``max_pairs`` (device batch footprint); the
-running best/argmax folds on host between chunks. Alignment happens once
-per read, on the winning pair only, through the normal backend dispatch.
+Device shape: the cross product of a read chunk and a panel chunk is
+tiled on the device inside jit and scored by the device score path
+(the GPU kernel where it compiles, the XLA scan elsewhere —
+``dispatch.resolve_score_impl``); the host→device copy carries only B + R
+sequences. The panel streams through in chunks bounded by ``max_pairs``
+(device batch footprint); the running best/argmax folds on host between
+chunks. Alignment happens once per read, on the winning pair only, through
+the normal backend dispatch.
 """
 
 from __future__ import annotations
@@ -29,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from versalignlib_tpu.alphabet import pad_and_encode
+from versalignlib_tpu.dispatch import resolve_score_impl
 from versalignlib_tpu.params import AlignmentParameters, DEFAULT_PARAMETERS
 from versalignlib_tpu.types import Algorithm, Alignment, TieBreak
 
@@ -49,60 +49,34 @@ def _encode(seqs) -> np.ndarray:
 
 
 def _cross_scores(reads, panel, params: AlignmentParameters,
-                  algorithm: Algorithm, impl: str, interpret: bool):
-    """(B, m) x (Rc, n) -> (B, Rc) scores.
-
-    Pallas: the dedicated one-vs-many kernel (ops/pallas_search.py) — the
-    smaller side streams through SMEM as broadcast queries, no B×Rc
-    cross-product intermediate. XLA: materialized repeat/tile pairs
-    through the portable scan kernel.
-    """
-    if impl == "pallas":
-        from versalignlib_tpu.ops.pallas_search import cross_scores_device
-
-        return cross_scores_device(reads, panel, params, algorithm,
-                                   interpret)
-    from versalignlib_tpu.ops.xla import score_batch
+                  algorithm: Algorithm, impl: str):
+    """(B, m) x (Rc, n) -> (B, Rc) scores: the B*Rc pairs are tiled on the
+    device and scored by the resolved device score path."""
+    from versalignlib_tpu.dispatch import device_score_fn
 
     b = reads.shape[0]
     rc = panel.shape[0]
     r = jnp.repeat(reads, rc, axis=0)   # (B*Rc, m): read i vs every ref
     f = jnp.tile(panel, (b, 1))         # (B*Rc, n)
-    return score_batch(r, f, params, algorithm).reshape(b, rc)
-
-
-# NOT jit-wrapped: the inner kernels (cross_scores_device / score_batch) are
-# jitted themselves, and an OUTER jit around a nested pjit trips a jaxlib-0.9
-# dispatch-cache bug on this stack — compile shape X, then shape Y, then call
-# shape Y AGAIN, and the C++ fastpath selects an executable with a different
-# parameter count ("Execution supplied 2 buffers but compiled program
-# expected 4").  Reproduced minimally with the nested-jit structure only;
-# dropping the redundant outer jit sidesteps it at zero cost on the
-# production (pallas) path, whose kernel call is a single jit boundary.
-def _score_cross_chunk(reads, panel, params: AlignmentParameters,
-                       algorithm: Algorithm, impl: str, interpret: bool):
-    return _cross_scores(reads, panel, params, algorithm, impl, interpret)
+    return device_score_fn(impl)(r, f, params, algorithm).reshape(b, rc)
 
 
 def _score_topk_chunk(reads, panel, params: AlignmentParameters,
-                      algorithm: Algorithm, impl: str, interpret: bool,
-                      k: int):
+                      algorithm: Algorithm, impl: str, k: int):
     """Device-side top-k fold of one chunk: the host receives O(B*k)
-    (values, window-index) pairs instead of the full (B, R) matrix — the
-    D2H reduction that makes huge window/panel sweeps link-friendly.
+    (values, window-index) pairs instead of the full (B, R) matrix.
     ``lax.top_k`` is stable (equal values keep the LOWER index), matching
-    the host fold's first-win scan-order convention exactly. (No outer jit
-    — see _score_cross_chunk.)"""
-    s = _cross_scores(reads, panel, params, algorithm, impl, interpret)
+    the host fold's first-win scan-order convention exactly."""
+    s = _cross_scores(reads, panel, params, algorithm, impl)
     return jax.lax.top_k(s, k)
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("params", "algorithm", "impl", "interpret", "mesh"),
+    static_argnames=("params", "algorithm", "impl", "mesh"),
 )
 def _score_cross_chunk_mesh(reads, panel, params: AlignmentParameters,
-                            algorithm: Algorithm, impl: str, interpret: bool,
+                            algorithm: Algorithm, impl: str,
                             mesh):
     """Mesh variant: reads shard over the data axis, the panel chunk is
     replicated on every device (each shard scores its reads against the
@@ -113,7 +87,7 @@ def _score_cross_chunk_mesh(reads, panel, params: AlignmentParameters,
     from versalignlib_tpu.parallel.mesh import DATA_AXIS
 
     mapped = jax.shard_map(
-        lambda r, f: _cross_scores(r, f, params, algorithm, impl, interpret),
+        lambda r, f: _cross_scores(r, f, params, algorithm, impl),
         mesh=mesh,
         in_specs=(P(DATA_AXIS, None), P(None, None)),
         out_specs=P(DATA_AXIS, None),
@@ -124,10 +98,10 @@ def _score_cross_chunk_mesh(reads, panel, params: AlignmentParameters,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("params", "algorithm", "impl", "interpret", "k", "mesh"),
+    static_argnames=("params", "algorithm", "impl", "k", "mesh"),
 )
 def _score_topk_chunk_mesh(reads, panel, params: AlignmentParameters,
-                           algorithm: Algorithm, impl: str, interpret: bool,
+                           algorithm: Algorithm, impl: str,
                            k: int, mesh):
     """Panel-sharded top-k: the panel chunk shards over the data axis (the
     MANY side), reads replicate; every device folds its local top-k and the
@@ -143,7 +117,7 @@ def _score_topk_chunk_mesh(reads, panel, params: AlignmentParameters,
     shard_r = panel.shape[0] // mesh.devices.size
 
     def local(r, f):
-        s = _cross_scores(r, f, params, algorithm, impl, interpret)
+        s = _cross_scores(r, f, params, algorithm, impl)
         v, i = jax.lax.top_k(s, k)  # stable: ties keep the LOWER local index
         off = jax.lax.axis_index(DATA_AXIS).astype(jnp.int32) * shard_r
         return v, i + off
@@ -159,7 +133,7 @@ def _score_topk_chunk_mesh(reads, panel, params: AlignmentParameters,
 
 
 def _mesh_topk_scores(reads_enc, panel_chunk, params, algorithm, impl,
-                      interpret, mesh, k: int):
+                      mesh, k: int):
     """One panel chunk sharded over the mesh's data axis with device-local
     top-k folds; the host k-way-merges the shard results.
 
@@ -182,7 +156,7 @@ def _mesh_topk_scores(reads_enc, panel_chunk, params, algorithm, impl,
     reads_dev = jax.device_put(jnp.asarray(reads_enc),
                                NamedSharding(mesh, P(None, None)))
     v, i = _score_topk_chunk_mesh(reads_dev, pc_dev, params, algorithm,
-                                  impl, interpret, k, mesh)
+                                  impl, k, mesh)
     v = np.asarray(v).astype(np.int64)
     i = np.asarray(i).astype(np.int64)
     v = np.where(i < rc, v, np.int64(NEG32))     # drop padding candidates
@@ -192,7 +166,7 @@ def _mesh_topk_scores(reads_enc, panel_chunk, params, algorithm, impl,
 
 
 def _mesh_chunk_scores_panel(reads_enc, panel_chunk, params, algorithm, impl,
-                             interpret, mesh) -> np.ndarray:
+                             mesh) -> np.ndarray:
     """Full (B, Rc) score block with the PANEL sharded over the data axis
     (reads replicated) — score_matrix's panel_axis="panel" mode."""
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -208,23 +182,23 @@ def _mesh_chunk_scores_panel(reads_enc, panel_chunk, params, algorithm, impl,
     reads_dev = jax.device_put(jnp.asarray(reads_enc),
                                NamedSharding(mesh, P(None, None)))
     out = _score_cross_chunk_mesh_panel(reads_dev, pc_dev, params, algorithm,
-                                        impl, interpret, mesh)
+                                        impl, mesh)
     return np.asarray(out)[:, :rc]
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("params", "algorithm", "impl", "interpret", "mesh"),
+    static_argnames=("params", "algorithm", "impl", "mesh"),
 )
 def _score_cross_chunk_mesh_panel(reads, panel, params: AlignmentParameters,
                                   algorithm: Algorithm, impl: str,
-                                  interpret: bool, mesh):
+                                  mesh):
     from jax.sharding import PartitionSpec as P
 
     from versalignlib_tpu.parallel.mesh import DATA_AXIS
 
     mapped = jax.shard_map(
-        lambda r, f: _cross_scores(r, f, params, algorithm, impl, interpret),
+        lambda r, f: _cross_scores(r, f, params, algorithm, impl),
         mesh=mesh,
         in_specs=(P(None, None), P(DATA_AXIS, None)),
         out_specs=P(None, DATA_AXIS),
@@ -233,38 +207,7 @@ def _score_cross_chunk_mesh_panel(reads, panel, params: AlignmentParameters,
     return mapped(reads, panel)
 
 
-def _pick_impl(impl: str, mesh=None) -> tuple[str, bool]:
-    dev = mesh.devices.flat[0] if mesh is not None else jax.devices()[0]
-    if impl != "auto":
-        return impl, (impl == "pallas" and dev.platform != "tpu")
-    return ("pallas" if dev.platform == "tpu" else "xla"), False
-
-
-def _check_dense_budget(m: int, n: int, params, impl: str, interpret: bool,
-                        caps=None) -> None:
-    """Reject (m, n) search shapes whose compiled VMEM plan cannot fit,
-    with guidance, instead of an opaque Mosaic OOM (the same role
-    ``capabilities.dense_fits`` plays for the pairwise backend)."""
-    if impl != "pallas" or interpret:
-        return
-    from versalignlib_tpu.ops.pallas_search import search_vmem_plan
-    from versalignlib_tpu.utils.capabilities import probe
-
-    caps = caps if caps is not None else probe()
-    if not caps.vmem_bytes:
-        return
-    need = search_vmem_plan(m, n, params.affine)
-    if need > caps.vmem_bytes:
-        raise ValueError(
-            f"dense search kernel needs {need / 2**20:.0f}MB VMEM for "
-            f"{m}x{n} sequence pairs; this device has "
-            f"{caps.vmem_bytes / 2**20:.0f}MB. Long pairs belong on the "
-            "banded path (models.banded_smith_waterman / --band); for "
-            "reference mapping use a smaller --window.")
-
-
-def _mesh_chunk_scores(reads_enc, panel_chunk, params, algorithm, impl,
-                       interpret, mesh):
+def _mesh_chunk_scores(reads_enc, panel_chunk, params, algorithm, impl, mesh):
     """One panel chunk over the mesh: pad B to the axis size, shard, score."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
@@ -278,14 +221,14 @@ def _mesh_chunk_scores(reads_enc, panel_chunk, params, algorithm, impl,
     panel_d = jax.device_put(jnp.asarray(panel_chunk),
                              NamedSharding(mesh, P(None, None)))
     out = _score_cross_chunk_mesh(reads_p, panel_d, params, algorithm,
-                                  impl, interpret, mesh)
+                                  impl, mesh)
     return np.asarray(out)[:b]
 
 
 NEG32 = np.iinfo(np.int32).min
 
 
-def _stream_best(reads_enc, panel_enc, params, algorithm, impl, interpret,
+def _stream_best(reads_enc, panel_enc, params, algorithm, impl,
                  chunk, mesh, panel_axis: str = "reads"):
     """Running top-2 fold over panel chunks.
 
@@ -304,13 +247,13 @@ def _stream_best(reads_enc, panel_enc, params, algorithm, impl, interpret,
         if mesh is not None and panel_axis == "panel":
             # Shard the MANY side: local top-2 per device, host k-way merge.
             v, i = _mesh_topk_scores(reads_enc, pc, params, algorithm, impl,
-                                     interpret, mesh, k=2)
+                                     mesh, k=2)
             c_arg = i[:, 0].astype(np.int32)
             c_best = v[:, 0].astype(np.int32)
             c_second = v[:, 1]
         elif mesh is not None:
             s = _chunk_scores(reads_enc, reads_dev, pc, params, algorithm,
-                              impl, interpret, mesh)
+                              impl, mesh)
             rows = np.arange(b)
             c_arg = np.argmax(s, axis=1)       # first-win within the chunk
             c_best = s[rows, c_arg]
@@ -320,7 +263,7 @@ def _stream_best(reads_enc, panel_enc, params, algorithm, impl, interpret,
             # Device-side top-2: O(B) comes back over the link, not (B, R).
             kk = min(2, pc.shape[0])
             v, i = _score_topk_chunk(reads_dev, jnp.asarray(pc), params,
-                                     algorithm, impl, interpret, kk)
+                                     algorithm, impl, kk)
             v = np.asarray(v)
             c_arg = np.asarray(i)[:, 0]
             c_best = v[:, 0]
@@ -349,8 +292,8 @@ def score_matrix(
     """All-vs-all scores: (B,) reads x (R,) panel -> (B, R) int32.
 
     ``max_pairs`` bounds the device batch per dispatch (the panel streams
-    through in ``ceil(B*R / max_pairs)`` chunks). ``impl``: auto = pallas
-    on TPU, xla elsewhere. ``mesh``: optional ``jax.sharding.Mesh`` —
+    through in ``ceil(B*R / max_pairs)`` chunks). ``impl``: auto = the GPU
+    kernel where it compiles, xla elsewhere. ``mesh``: optional ``jax.sharding.Mesh`` —
     ``panel_axis`` selects which side shards over its data axis:
     ``"reads"`` (default) shards the read batch and replicates the panel
     chunk; ``"panel"`` shards the panel chunk and replicates the reads —
@@ -364,9 +307,7 @@ def score_matrix(
     r = panel_enc.shape[0]
     if b == 0 or r == 0:
         return np.zeros((b, r), dtype=np.int32)
-    impl, interpret = _pick_impl(impl, mesh)
-    _check_dense_budget(reads_enc.shape[1], panel_enc.shape[1], params,
-                        impl, interpret)
+    impl = resolve_score_impl(impl)
     algorithm = Algorithm(algorithm)
     chunk = max(1, min(r, max_pairs // max(b, 1)))
     reads_dev = None if mesh is not None else jnp.asarray(reads_enc)
@@ -375,10 +316,10 @@ def score_matrix(
         pc = panel_enc[lo : lo + chunk]
         if mesh is not None and panel_axis == "panel":
             out[:, lo : lo + pc.shape[0]] = _mesh_chunk_scores_panel(
-                reads_enc, pc, params, algorithm, impl, interpret, mesh)
+                reads_enc, pc, params, algorithm, impl, mesh)
         else:
             out[:, lo : lo + pc.shape[0]] = _chunk_scores(
-                reads_enc, reads_dev, pc, params, algorithm, impl, interpret,
+                reads_enc, reads_dev, pc, params, algorithm, impl,
                 mesh)
     return out
 
@@ -415,13 +356,11 @@ def best_hits(
         return (np.full(b, -1, np.int32),
                 np.full(b, np.iinfo(np.int32).min, np.int32),
                 [unmapped_alignment() for _ in range(b)] if align else None)
-    impl, interpret = _pick_impl(impl, mesh)
-    _check_dense_budget(reads_enc.shape[1], panel_enc.shape[1], params,
-                        impl, interpret)
+    impl = resolve_score_impl(impl)
     algorithm = Algorithm(algorithm)
     chunk = max(1, min(r, max_pairs // max(b, 1)))
     arg, best, _ = _stream_best(reads_enc, panel_enc, params, algorithm,
-                                impl, interpret, chunk, mesh, panel_axis)
+                                impl, chunk, mesh, panel_axis)
     if not align:
         return arg, best, None
     alns = _align_pairs(reads_enc, panel_enc[arg], params, algorithm, tie,
@@ -469,13 +408,12 @@ def _mapq_from_gap(best, second, params) -> np.ndarray:
 
 
 def _chunk_scores(reads_enc, reads_dev, pc, params, algorithm, impl,
-                  interpret, mesh) -> np.ndarray:
+                  mesh) -> np.ndarray:
     """One (reads x panel-chunk) score block, mesh-aware."""
     if mesh is not None:
-        return _mesh_chunk_scores(reads_enc, pc, params, algorithm, impl,
-                                  interpret, mesh)
-    return np.asarray(_score_cross_chunk(
-        reads_dev, jnp.asarray(pc), params, algorithm, impl, interpret))
+        return _mesh_chunk_scores(reads_enc, pc, params, algorithm, impl, mesh)
+    return np.asarray(_cross_scores(
+        reads_dev, jnp.asarray(pc), params, algorithm, impl))
 
 
 @dataclasses.dataclass
@@ -551,9 +489,7 @@ def map_read_pairs(
                           np.full(b, np.iinfo(np.int64).min, np.int64),
                           np.zeros(b, np.int8), empty(), empty(),
                           np.zeros(b, np.uint8))
-    impl, interpret = _pick_impl(impl, mesh)
-    _check_dense_budget(max(f1_enc.shape[1], f2_enc.shape[1]),
-                        panel_enc.shape[1], params, impl, interpret)
+    impl = resolve_score_impl(impl)
     algorithm = Algorithm(algorithm)
     r1_enc = reverse_complement_codes(f1_enc)
     r2_enc = reverse_complement_codes(f2_enc)
@@ -572,7 +508,7 @@ def map_read_pairs(
     for lo in range(0, r, chunk):
         pc = panel_enc[lo : lo + chunk]
         s_f1, s_r1, s_f2, s_r2 = (
-            _chunk_scores(enc, dev, pc, params, algorithm, impl, interpret,
+            _chunk_scores(enc, dev, pc, params, algorithm, impl,
                           mesh).astype(np.int64)
             for enc, dev in zip((f1_enc, r1_enc, f2_enc, r2_enc), devs))
         fr = s_f1 + s_r2
@@ -645,20 +581,18 @@ def map_reads(
                           [unmapped_alignment() for _ in range(b)]
                           if align else None,
                           np.zeros(b, np.uint8))
-    impl, interpret = _pick_impl(impl, mesh)
-    _check_dense_budget(reads_enc.shape[1], panel_enc.shape[1], params,
-                        impl, interpret)
+    impl = resolve_score_impl(impl)
     algorithm = Algorithm(algorithm)
     chunk = max(1, min(r, max_pairs // max(b, 1)))
     arg, best, second = _stream_best(reads_enc, panel_enc, params, algorithm,
-                                     impl, interpret, chunk, mesh, panel_axis)
+                                     impl, chunk, mesh, panel_axis)
     strand = np.zeros(b, dtype=np.int8)
     if both_strands:
         from versalignlib_tpu.alphabet import reverse_complement_codes
 
         rc_enc = reverse_complement_codes(reads_enc)
         rc_arg, rc_best, rc_second = _stream_best(
-            rc_enc, panel_enc, params, algorithm, impl, interpret, chunk,
+            rc_enc, panel_enc, params, algorithm, impl, chunk,
             mesh, panel_axis)
         rev = rc_best > best            # strict >: forward wins ties
         # Top-2 merge across the two orientations' candidate pools.

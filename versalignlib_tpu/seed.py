@@ -2,15 +2,14 @@
 
 ADDITIVE — the reference aligns 1:1 pairs only. ``refmap.py``'s exhaustive
 window tiling is exact but O(reads x genome) cells: practical to
-bacterial-genome scale on one TPU core, not for long reads against large
+bacterial-genome scale on one accelerator, not for long reads against large
 genomes. The standard fix is seed-and-extend (minimap2 lineage): index the
 reference's (w, k)-minimizers once, find anchor matches per read, chain
 colinear anchors, and only run DP inside the chained region — which this
-framework then does on the TPU banded kernels (``chain.py`` /
-``longread.py``).
+framework then does with the device band scan (``longread.py``).
 
 Everything here is NumPy-vectorized host code (index building is IO/hash
-bound, not DP bound — the TPU's job starts at extension):
+bound, not DP bound — the device's job starts at extension):
 
 - k-mers pack 2 bits/base into int64 (k <= 31); windows containing N or
   padding yield no minimizer (the reference treats both as never-matching,

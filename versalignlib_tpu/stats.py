@@ -216,7 +216,7 @@ def calibrate(
     :func:`calibrate_islands` (finite-size bias here shrinks only like
     ~ln(mn), not with ``samples``).
     """
-    from versalignlib_tpu.search import _pick_impl
+    from versalignlib_tpu.dispatch import device_score_fn, resolve_score_impl
     from versalignlib_tpu.types import Algorithm
 
     if params.matrix is not None:
@@ -228,17 +228,8 @@ def calibrate(
                          size=(samples, m)).astype(np.uint8)
     refs = rng.integers(lo_code, lo_code + n_codes,
                         size=(samples, n)).astype(np.uint8)
-    impl, interpret = _pick_impl(impl)
-    if impl == "pallas":
-        from versalignlib_tpu.ops.pallas_score import score_batch_device
-
-        scores = np.asarray(score_batch_device(
-            reads, refs, params, Algorithm.SMITH_WATERMAN, interpret))
-    else:
-        from versalignlib_tpu.ops.xla import score_batch
-
-        scores = np.asarray(score_batch(
-            reads, refs, params, Algorithm.SMITH_WATERMAN))
+    score = device_score_fn(resolve_score_impl(impl))
+    scores = np.asarray(score(reads, refs, params, Algorithm.SMITH_WATERMAN))
     return calibrate_scores(scores, m, n, lam=lam, method=method,
                             samples=samples)
 

@@ -13,8 +13,7 @@ non-ACGT base (N, padding) translate to ``'X'`` (mildly negative). Frames
 are labeled +1/+2/+3 and -1/-2/-3; a reverse frame's protein reads along
 the reverse complement, so a hit in frame -f starts near the READ's 3'
 end. The compute path is the standard one-vs-many machinery
-(search.score_matrix) — on TPU the translations ride the SMEM-broadcast
-search kernel with bit-packed BLOSUM62 rows; nothing here is
+(search.score_matrix) on the device score path; nothing here is
 translation-specific below the Python orchestration.
 """
 
@@ -182,8 +181,7 @@ def translated_search(
     ``reads``: DNA strings or (B, L) uint8 code array; ``panel``: protein
     strings or a pre-encoded (R, n) uint8 code array (PROTEIN_ALPHABET).
     All 6*B translations are scored against the panel in one
-    :func:`~versalignlib_tpu.search.score_matrix` sweep (the one-vs-many
-    kernel on TPU); ties on the fold keep the earlier frame in
+    :func:`~versalignlib_tpu.search.score_matrix` sweep; ties on the fold keep the earlier frame in
     :data:`FRAMES` order, then the lower panel index (scan order, like
     best_hits).
 
@@ -292,21 +290,19 @@ def translated_search(
     if not alignments:
         return hits
 
-    # Winning pairs, one batched matrix-mode align dispatch (device path on
-    # TPU; the affine default routes through the Gotoh kernel).
+    # Winning pairs, one batched matrix-mode align dispatch (the affine
+    # default routes through the Gotoh fill).
     win_prots = [proteins[i][best_f[i]] for i in range(b)]
     win_texts = [panel_texts[j] if panel_texts is not None else None
                  for j in idx]
-    from versalignlib_tpu.ops.pallas_align import pallas_align_batch
-    from versalignlib_tpu.ops.pallas_score import _is_tpu
+    from versalignlib_tpu.ops.xla import align_pairs
     from versalignlib_tpu.types import TieBreak
 
     q_codes = encode_custom(win_prots, PROTEIN_ALPHABET)
     r_codes = panel_codes[idx]
-    alns = pallas_align_batch(
+    alns = align_pairs(
         q_codes, r_codes, params, Algorithm(algorithm),
-        TieBreak.DIAG_UP_LEFT, interpret=not _is_tpu(),
-        read_texts=win_prots,
+        TieBreak.DIAG_UP_LEFT, read_texts=win_prots,
         ref_texts=win_texts if panel_texts is not None else None)
     dna_start = np.zeros(b, dtype=np.int32)
     dna_end = np.zeros(b, dtype=np.int32)

@@ -195,6 +195,10 @@ class AlignmentBatch:
     def concat(batches: list["AlignmentBatch"]) -> "AlignmentBatch":
         import numpy as _np
 
+        if not batches:
+            empty = _np.zeros((0, 0), _np.uint8)
+            return AlignmentBatch(empty, empty, empty,
+                                  _np.zeros((0, 8), _np.int32))
         gapped = batches[0].read_gapped is not None
         return AlignmentBatch(
             _np.concatenate([b.read_gapped for b in batches]) if gapped else None,

@@ -1,9 +1,9 @@
 """Runtime capability probing.
 
-The TPU-era analogue of the reference's CPUID gate
-(``check_avx2_support``, /root/reference/src/util/versalignUtil.cpp:78-181,
-used to conditionally register the AVX backend, main.cpp:80-83): probe the
-JAX platform once, cache it, and let the dispatcher pick the best backend.
+The analogue of the reference's CPUID gate (``check_avx2_support``,
+/root/reference/src/util/versalignUtil.cpp:78-181, used to conditionally
+register the AVX backend, main.cpp:80-83): probe the JAX platform once,
+cache it, and let the dispatcher pick the best backend.
 """
 
 from __future__ import annotations
@@ -18,65 +18,31 @@ _log = get_logger("capabilities")
 
 @dataclasses.dataclass(frozen=True)
 class DeviceCapabilities:
-    platform: str          # "tpu" | "cpu" | "gpu"
+    platform: str          # JAX platform of device 0: "gpu", "cpu", ...
     device_kind: str
     num_devices: int
-    supports_pallas_compiled: bool
-    #: bytes of VMEM per core (TPU) — bounds dense kernel ref lengths
-    vmem_bytes: int
+    #: device memory the allocator may use (``memory_stats()["bytes_limit"]``);
+    #: None where the device reports none (the CPU)
+    memory_bytes: int | None
 
-    def dense_fits(self, m: int, n: int, affine: bool = False,
-                   mode: str = "align") -> bool:
-        """Whether the dense Pallas kernels' VMEM plan fits this device.
-
-        Delegates to the kernels' OWN plan formulas (the exact
-        ``vmem_limit_bytes`` they request — ``score_vmem_plan`` /
-        ``align_vmem_plan``), so the gate can neither reject workloads the
-        kernel compiles nor pass ones it OOMs on. ``mode``: "score" (plan
-        scales with m+n — the whole read block is VMEM-resident) or
-        "align" (m-independent — read rows stream through the grid; worst
-        case over SW/NW taken). Callers route oversize pairs to the banded
-        path (ops/banded.py) instead of hitting an opaque Mosaic OOM.
-        """
-        if self.vmem_bytes == 0:
-            return True  # interpret / CPU: no VMEM constraint
-        if mode == "score":
-            from versalignlib_tpu.ops.pallas_score import score_vmem_plan
-
-            return score_vmem_plan(m, n, affine) <= self.vmem_bytes
-        from versalignlib_tpu.ops.pallas_align import align_vmem_plan
-
-        return align_vmem_plan(n, affine, local=False) <= self.vmem_bytes
+    @property
+    def gpu_kernels(self) -> bool:
+        """Whether the hand-written GPU kernels compile here (CUDA devices;
+        JAX names that platform "gpu")."""
+        return self.platform == "gpu"
 
 
 @functools.lru_cache(maxsize=1)
 def probe() -> DeviceCapabilities:
-    try:
-        import jax
+    import jax
 
-        devices = jax.devices()
-        platform = devices[0].platform
-        kind = getattr(devices[0], "device_kind", platform)
-        n = len(devices)
-    except Exception as exc:
-        _log.warning("device probe failed: %s", exc)
-        return DeviceCapabilities("none", "none", 0, False, 0)
-    if platform == "tpu":
-        # VMEM per core by generation: v5e ("TPU v5 lite"), v5p and v6e carry
-        # 128MB; older generations 16MB. Conservative default for unknowns.
-        kl = kind.lower()
-        if any(t in kl for t in ("v5 lite", "v5e", "v5p", "v6", "v7")):
-            vmem = 128 * 2**20
-        else:
-            vmem = 16 * 2**20
-    else:
-        vmem = 0
+    local = jax.local_devices()[0]  # memory stats need an addressable one
+    stats = local.memory_stats() or {}
     caps = DeviceCapabilities(
-        platform=platform,
-        device_kind=kind,
-        num_devices=n,
-        supports_pallas_compiled=platform == "tpu",
-        vmem_bytes=vmem,
+        platform=local.platform,
+        device_kind=local.device_kind,
+        num_devices=len(jax.devices()),
+        memory_bytes=stats.get("bytes_limit"),
     )
     _log.info("device capabilities: %s", caps)
     return caps
